@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``dtv_utils_tpu``, for one NVIDIA Hopper GPU.
+
+The JAX package beside it is the reference: every module here mirrors the
+path of its counterpart there (``dtv_utils_torch/tx/j83b.py`` ports
+``dtv_utils_tpu/tx/j83b.py``), and ``tests/test_torch_*.py`` hold the two
+to the same outputs.  This package imports torch and numpy only, never JAX.
+
+Idiom: plain functions on tensors, run eagerly; stream state is a
+``@dataclass`` of tensors; public entry points take an explicit ``device``
+(see :func:`resolve_device` — a CUDA request never falls back to the CPU).
+The only hand-written kernel so far is the J.83B RRC interpolator
+(``csrc/fir_interp2.cu``, wrapped by ``ops/fir.py``).
+"""
+
+from dtv_utils_torch.utils.device import resolve_device
+
+__all__ = ["resolve_device"]

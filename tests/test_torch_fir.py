@@ -1,0 +1,158 @@
+"""The port's RRC interpolator (dtv_utils_torch.ops.fir) against the JAX
+reference, and its CUDA kernel against its plain version.
+
+On the CPU the wrapper runs the plain PyTorch version; it is held to the
+Pallas kernel (interpret mode, as tests/test_j83b.py runs it) and to the
+reference's CPU formulation, at atol 1e-6: float32 sums of 50 products
+taken in different orders differ in the last bits.
+
+The ``gpu`` test needs a card and no JAX; on the GPU machine run
+``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fir.py -m gpu``.
+So this module imports JAX only inside the tests that compare with it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dtv_utils_torch.core.config import J83bConfig
+from dtv_utils_torch.ops import fir
+from dtv_utils_torch.tx import j83b as T
+
+TAPS = T.rrc_taps(J83bConfig())
+TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def _ext(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((2, fir.HIST + n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [40_000, 300])
+def test_plain_matches_pallas_interpret(n):
+    from dtv_utils_tpu.ops.fir import polyphase_interp2 as pallas_fir
+    import jax.numpy as jnp
+
+    x = _ext(n, seed=n)
+    want = np.asarray(pallas_fir(jnp.asarray(x), TAPS, n))
+    got = fir.polyphase_interp2(torch.from_numpy(x), TAPS, n)
+    assert tuple(got.shape) == (2, 2 * n)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n", [40_000, 300])
+def test_plain_matches_interp2_conv(n):
+    from dtv_utils_tpu.tx.j83b import _interp2_conv
+    import jax.numpy as jnp
+
+    x = _ext(n, seed=n + 1)
+    want = np.asarray(_interp2_conv(jnp.asarray(x), TAPS, n))
+    got = fir.interp2_reference(torch.from_numpy(x), TAPS, n)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n", [40_000, 300])
+def test_rrc_interpolate_split_call_tail(n):
+    """Two chained calls carry the 49-sample history like the reference's
+    (tests/test_j83b.py:89-106)."""
+    from dtv_utils_tpu.tx import j83b as J
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n + 2)
+    cells = rng.standard_normal((2, 2 * n)).astype(np.float32)
+    tail_j = np.zeros((2, fir.HIST), np.float32)
+    tail_t = torch.from_numpy(tail_j)
+    for half in (cells[:, :n], cells[:, n:]):
+        want, tail_j = J.rrc_interpolate(jnp.asarray(half), tail_j, TAPS)
+        got, tail_t = T.rrc_interpolate(torch.from_numpy(half), tail_t, TAPS)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_array_equal(tail_t.numpy(), np.asarray(tail_j))
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (lambda x: x.double(), TypeError),
+    (lambda x: x.t().contiguous().t(), ValueError),        # non-contiguous
+    (lambda x: x[:, ::2], ValueError),                      # strided view
+    (lambda x: torch.cat([x, x[:1]]), ValueError),          # three rails
+    (lambda x: x[:, :fir.HIST + 9], ValueError),            # n > L - 49
+])
+def test_wrapper_rejects(bad, exc):
+    x = torch.from_numpy(_ext(10, seed=3))
+    with pytest.raises(exc):
+        fir.polyphase_interp2(bad(x), TAPS, 10)
+
+
+def test_wrapper_rejects_wrong_taps():
+    x = torch.from_numpy(_ext(10, seed=4))
+    with pytest.raises(ValueError):
+        fir.polyphase_interp2(x, TAPS[:98], 10)
+
+
+def test_wrapper_rejects_other_devices():
+    """Only a CPU tensor takes the plain version; anything else that is not
+    CUDA raises instead of falling back."""
+    x = torch.empty((2, fir.HIST + 10), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fir.polyphase_interp2(x, TAPS, 10)
+
+
+def test_cpu_path_never_builds_the_kernel():
+    from dtv_utils_torch.ops import _build
+
+    before = _build.library.cache_info()
+    fir.polyphase_interp2(torch.from_numpy(_ext(30, seed=7)), TAPS, 30)
+    assert _build.library.cache_info() == before
+
+
+def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    from pathlib import Path
+
+    from dtv_utils_torch.ops import _build
+
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("the CUDA toolkit is installed at its default prefix")
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_library_name_follows_the_sources():
+    from dtv_utils_torch.ops import _build
+
+    p = _build.library_path()
+    assert p.parent == _build.BUILD_DIR
+    assert p.name.startswith("libdtv_torch_kernels_") and p.suffix == ".so"
+    assert sorted(_build.CSRC.glob("*.cu"))     # sources ship with the repo
+
+
+def test_cpu_tensor_leaves_launches_at_zero(monkeypatch):
+    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    x = torch.from_numpy(_ext(300, seed=5))
+    out = fir.polyphase_interp2(x, TAPS, 300)
+    torch.testing.assert_close(out, fir.interp2_reference(x, TAPS, 300),
+                               rtol=0, atol=0)
+    assert fir.LAUNCHES == 0
+
+
+def test_phase_taps_layout():
+    h = fir._phase_taps(TAPS.tobytes())
+    assert h.shape == (2, 50) and h.dtype == np.float32
+    assert h.flags.c_contiguous
+    np.testing.assert_array_equal(h[0], TAPS[0::2][::-1])
+    np.testing.assert_array_equal(h[1], TAPS[1::2][::-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1_806_210, 40_000, 1])
+def test_kernel_matches_plain_on_cuda(n, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    x = torch.from_numpy(_ext(n, seed=6)).cuda()
+    got = fir.polyphase_interp2(x, TAPS, n)
+    want = fir.interp2_reference(x, TAPS, n)
+    torch.testing.assert_close(got, want, **TOL)
+    assert fir.LAUNCHES == 1
