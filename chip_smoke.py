@@ -3,14 +3,23 @@
 
 Run from the repository root on a machine with an H100 (sm_90a) and the CUDA
 toolkit: ``python3 chip_smoke.py``.  It builds the port's CUDA kernel from
-``dtv_utils_torch/csrc``, holds it against its plain PyTorch version, drives
-the J.83B modulator (``modulate_stream``, then the ``qam-mod`` CLI) on the
-card at its full size, checks the output against
-``tests/golden/j83b_torch_smoke.json`` (made from the JAX reference by
-``tests/test_torch_j83b.py``), and times the serving shape of ``bench.py``.
-Every check raises on failure, so the exit code is non-zero if any phase
-fails.  The last two lines of stdout are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  It never imports JAX.
+``dtv_utils_torch/csrc`` and holds it against its plain PyTorch version,
+then drives each ported path on the card at its full size and checks it
+against a golden made from the JAX reference:
+
+* J.83B: ``modulate_stream`` and the ``qam-mod`` CLI against
+  ``tests/golden/j83b_torch_smoke.json`` (``tests/test_torch_j83b.py``);
+* DVB-T 8K 64-QAM 7/8 GI 1/32: ``modulate_stream``, the ``dvbt-mod`` CLI
+  and its state save/resume against ``tests/golden/dvbt_torch_smoke.json``
+  (``tests/test_torch_dvbt.py``);
+* PAPR: the card's report against papr.c's own goldens and against the
+  port's CPU report on the DVB-T IQ.
+
+Then it times the serving shapes of ``bench.py`` (J.83B, DVB-T, PAPR) and
+profiles the DVB-T chain.  Every check raises on failure, so the exit code
+is non-zero if any phase fails.  The last two lines of stdout are the
+kernels' JSON record and ``{"ok": true, "device": {...}}``.  It never
+imports JAX.
 """
 
 from __future__ import annotations
@@ -28,12 +37,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "j83b_torch_smoke.json"
+DVBT_GOLDEN = ROOT / "tests" / "golden" / "dvbt_torch_smoke.json"
+PAPR_GOLDENS = {False: ROOT / "tests" / "golden" / "papr_4096.txt",
+                True: ROOT / "tests" / "golden" / "papr_g_4096.txt"}
 
 FIR_TOL = dict(atol=1e-6, rtol=1e-6)   # kernel vs plain: fp32 sums in two orders
 IQ_ATOL = 2e-6                          # card IQ vs the JAX reference's on a CPU
 FIR_SIZES = (1_806_210, 40_000, 1)      # main-path n, a ragged tile, one cell
-N_STREAMS = 4                           # bench.py's J.83B serving shape
+N_STREAMS = 4                           # bench.py's serving shape
 TIMED_ROUNDS = 25                       # per repeat; 3 repeats show the spread
+DVBT_IQ_REL = 1e-4                      # max|d|/rms, card IQ vs the JAX CPU's
+DVBT_FLOOR_MSPS = 8e6 * 8 / 7 / 1e6     # real time for one 8 MHz channel
+PROFILE_ROUNDS = 8                      # DVB-T profiler window, 4 streams
+PAPR_CHUNK = 1 << 26                    # bench.py's PAPR chunk, complex
+PAPR_LEVELS = 13                        # ~ a 12 dB report
+J83B_STATE_KEYS = ("ilv_carry", "conv_a", "conv_b", "diff_state")
+DVBT_STATE_KEYS = ("packet_phase", "outer_carry", "conv_state")
 
 
 def seeded_ts(seed: int, n_bytes: int) -> np.ndarray:
@@ -57,10 +76,33 @@ def sha256(*arrays: np.ndarray) -> str:
     return h.hexdigest()
 
 
-def state_digest(d: dict) -> str:
-    """sha256 of a J.83B state's integer fields, from host arrays."""
-    return sha256(*(np.asarray(d[k]) for k in
-                    ("ilv_carry", "conv_a", "conv_b", "diff_state")))
+def state_digest(d: dict, keys=J83B_STATE_KEYS) -> str:
+    """sha256 of a chain state's integer fields, from host arrays."""
+    return sha256(*(np.asarray(d[k]) for k in keys))
+
+
+def card_line(dev) -> str:
+    """``name, power limit`` of the card, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[dev.index]
+
+
+def dvbt_flagship():
+    """DVB-T 8K 64-QAM 7/8 GI 1/32, 8 MHz: bench.py's headline config."""
+    from dtv_utils_torch.core.config import (CodeRate, Constellation,
+                                             DvbtConfig, GuardInterval,
+                                             TransmissionMode)
+    return DvbtConfig(mode=TransmissionMode.M8K, bandwidth_mhz=8,
+                      constellation=Constellation.QAM64,
+                      code_rate=CodeRate.R7_8, guard=GuardInterval.G1_32)
+
+
+def papr_fixture() -> np.ndarray:
+    """The input papr.c's goldens were made from: 4096 complex samples."""
+    rng = np.random.default_rng(1234)
+    return (rng.standard_normal(8192) * 0.25).astype(np.float32)
 
 
 def check_fir(dev, taps) -> float:
@@ -154,6 +196,119 @@ def check_slice(dev, golden: dict) -> tuple[int, np.ndarray]:
     return launches, iq
 
 
+def check_dvbt_slice(dev, golden: dict) -> tuple[np.ndarray, float]:
+    """DVB-T ``modulate_stream`` over the golden's superframes on ``dev``:
+    carriers' sha256 per superframe and the state digest equal the golden,
+    IQ at the golden's indices within DVBT_IQ_REL.  Returns the IQ and its
+    max|d|/rms."""
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    n_sf = golden["superframes"]
+    blk = cfg.ts_bytes_per_superframe
+    ts = seeded_ts(golden["seed"], n_sf * blk)
+    if sha256(ts) != golden["ts_sha256"]:
+        raise AssertionError("seeded_ts no longer makes the DVB-T input")
+
+    iq, state = txd.modulate_stream(cfg, ts, device=dev)
+    want_len = n_sf * cfg.samples_per_superframe
+    if iq.shape != (want_len,) or iq.dtype != np.complex64:
+        raise AssertionError(f"IQ {iq.dtype} {iq.shape}, want complex64 "
+                             f"({want_len},)")
+    if not np.isfinite(iq.view(np.float32)).all():
+        raise AssertionError("non-finite IQ")
+    idx = np.asarray(golden["iq_index"])
+    want = (np.asarray(golden["iq_re"], np.float32)
+            + 1j * np.asarray(golden["iq_im"], np.float32))
+    rel = float(np.abs(iq[idx] - want).max() / golden["iq_rms"])
+    print(f"dvbt modulate_stream: {n_sf} superframes; IQ at {idx.size} "
+          f"golden indices: max|d|/rms={rel:.3e} (bound {DVBT_IQ_REL:g})")
+    if not rel < DVBT_IQ_REL:
+        raise AssertionError(f"DVB-T IQ max|d|/rms {rel:.3e} >= "
+                             f"{DVBT_IQ_REL:g}")
+    if state_digest(txd.state_to_numpy(state),
+                    DVBT_STATE_KEYS) != golden["state_sha256"]:
+        raise AssertionError("DVB-T final state differs from the golden")
+
+    st = txd.init_state(cfg, device=dev)
+    for i in range(n_sf):
+        block = torch.from_numpy(ts[i * blk:(i + 1) * blk]).to(dev)
+        carriers, st = txd.encode_to_carriers(cfg, block, st)
+        got = torch.view_as_real(carriers).cpu().numpy()
+        if sha256(got) != golden["carriers_sha256"][i]:
+            raise AssertionError(f"superframe {i}: carriers differ from "
+                                 "golden")
+    print("dvbt carriers sha256 and state digest match the golden")
+
+    if dev.type == "cuda":          # a warm superframe may not sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            txd.modulate_superframe(cfg, block, st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("dvbt modulate_superframe ran with no host sync")
+    return iq, rel
+
+
+def _dvbt_mod(args: list[str], device: str) -> None:
+    subprocess.run([sys.executable, "-m", "dtv_utils_torch.cli", "dvbt-mod",
+                    *args, "--device", device],
+                   cwd=ROOT, check=True, timeout=300, stdout=subprocess.DEVNULL)
+
+
+def check_dvbt_cli(golden: dict, iq: np.ndarray, device: str) -> None:
+    """``dvbt-mod`` writes exactly ``iq``, and a ``--save-state`` /
+    ``--load-state`` split run writes the same bytes as one run."""
+    cfg = dvbt_flagship()
+    blk = cfg.ts_bytes_per_superframe
+    ts = seeded_ts(golden["seed"], golden["superframes"] * blk)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        ts.tofile(d / "in.ts")
+        ts[blk:].tofile(d / "rest.ts")
+        _dvbt_mod(["-o", str(d / "one.cfile"), str(d / "in.ts")], device)
+        _dvbt_mod(["-n", "1", "--save-state", str(d / "s.npz"),
+                   "-o", str(d / "a.cfile"), str(d / "in.ts")], device)
+        _dvbt_mod(["-n", str(golden["superframes"] - 1), "--load-state",
+                   str(d / "s.npz"), "-o", str(d / "b.cfile"),
+                   str(d / "rest.ts")], device)
+        one = (d / "one.cfile").read_bytes()
+        split = (d / "a.cfile").read_bytes() + (d / "b.cfile").read_bytes()
+    if one != iq.tobytes():
+        raise AssertionError("dvbt-mod output differs from modulate_stream")
+    if split != one:
+        raise AssertionError("dvbt-mod split at a saved state differs from "
+                             "the one-shot run")
+    print("dvbt-mod output equals modulate_stream's; the save/load-state "
+          "split run equals the one-shot run")
+
+
+def check_papr(dev, golden: dict, iq: np.ndarray) -> None:
+    """The card's PAPR report equals papr.c's goldens on their input, and
+    the port's CPU report on the DVB-T IQ, byte for byte."""
+    from dtv_utils_torch.analysis import papr
+
+    x = papr_fixture()
+    if sha256(x) != golden["papr_input_sha256"]:
+        raise AssertionError("numpy.random.default_rng(1234) no longer makes "
+                             "the PAPR goldens' input; the comparison with "
+                             "papr.c's reports would be void")
+    with tempfile.TemporaryDirectory() as d:
+        small, big = Path(d, "small.cfile"), Path(d, "dvbt.cfile")
+        x.tofile(small)
+        iq.astype(np.complex64).tofile(big)
+        for graph, path in PAPR_GOLDENS.items():
+            if papr.report(str(small), graph, device=dev) != path.read_text():
+                raise AssertionError(f"PAPR report differs from {path.name}")
+            got = papr.report(str(big), graph, device=dev)
+            if got != papr.report(str(big), graph, device="cpu"):
+                raise AssertionError(f"PAPR report (graph={graph}) on the "
+                                     "DVB-T IQ differs between card and CPU")
+    print("papr: reports equal papr.c's goldens and the CPU's on the "
+          "DVB-T IQ")
+
+
 def check_cli(golden: dict, iq: np.ndarray, device: str) -> None:
     """``python -m dtv_utils_torch.cli qam-mod`` writes the same IQ."""
     from dtv_utils_torch.tx import j83b as txq
@@ -172,38 +327,137 @@ def check_cli(golden: dict, iq: np.ndarray, device: str) -> None:
     print("qam-mod CLI output equals modulate_stream's")
 
 
-def serve(dev) -> tuple[list[float], list[float]]:
-    """bench.py's serving shape: 4 streams round-robin, one superblock per
+def _serve(dev, fn, init_state, block_bytes: int,
+           samples_per_block: int) -> tuple[list[float], list[float]]:
+    """bench.py's serving shape: 4 streams round-robin, one block per
     launch, a distinct device-resident input per launch, warm-up excluded.
     Returns three repeats each of Msamples/s (4 streams) and of ms per
-    superblock on one stream."""
-    from dtv_utils_torch.core.config import J83bConfig
-    from dtv_utils_torch.tx import j83b as txq
+    block on one stream."""
     from dtv_utils_torch.utils.timing import timed_stream
 
-    cfg = J83bConfig()
-    blk = txq.SUPERBLOCK_BYTES
     g = torch.Generator(device=dev).manual_seed(2)
 
     def inputs(count):
-        ts = torch.randint(0, 256, (count, blk), generator=g, device=dev,
-                           dtype=torch.uint8)
+        ts = torch.randint(0, 256, (count, block_bytes), generator=g,
+                           device=dev, dtype=torch.uint8)
         ts[:, ::188] = 0x47
         return list(ts)
 
-    def fn(x, st):
-        return txq.modulate_superblock(cfg, x, st)
-
     msps, ms = [], []
     for _ in range(3):
-        states = [txq.init_state(cfg, device=dev) for _ in range(N_STREAMS)]
+        states = [init_state() for _ in range(N_STREAMS)]
         sec = timed_stream(fn, inputs(N_STREAMS * (1 + TIMED_ROUNDS)), states)
-        msps.append(TIMED_ROUNDS * N_STREAMS * 2 * txq.SUPERBLOCK_SYMBOLS
-                    / sec / 1e6)
-        one = [txq.init_state(cfg, device=dev)]
-        sec = timed_stream(fn, inputs(1 + TIMED_ROUNDS), one)
+        msps.append(TIMED_ROUNDS * N_STREAMS * samples_per_block / sec / 1e6)
+        sec = timed_stream(fn, inputs(1 + TIMED_ROUNDS), [init_state()])
         ms.append(sec / TIMED_ROUNDS * 1e3)
     return msps, ms
+
+
+def serve(dev) -> tuple[list[float], list[float]]:
+    """J.83B serving, one superblock per launch."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.tx import j83b as txq
+
+    cfg = J83bConfig()
+    return _serve(dev, lambda x, st: txq.modulate_superblock(cfg, x, st),
+                  lambda: txq.init_state(cfg, device=dev),
+                  txq.SUPERBLOCK_BYTES, 2 * txq.SUPERBLOCK_SYMBOLS)
+
+
+def serve_dvbt(dev) -> tuple[list[float], list[float]]:
+    """DVB-T flagship serving, one superframe per launch."""
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    return _serve(dev, lambda x, st: txd.modulate_superframe(cfg, x, st),
+                  lambda: txd.init_state(cfg, device=dev),
+                  cfg.ts_bytes_per_superframe, cfg.samples_per_superframe)
+
+
+def _union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_dvbt(dev) -> tuple[float, float]:
+    """torch.profiler over PROFILE_ROUNDS rounds of 4-stream DVB-T serving:
+    prints the top device ops by self CUDA time; returns device-busy ms
+    per superframe (union of kernel intervals) and kernels per
+    superframe."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = N_STREAMS * (1 + PROFILE_ROUNDS)
+    ts = torch.randint(0, 256, (n, cfg.ts_bytes_per_superframe),
+                       generator=g, device=dev, dtype=torch.uint8)
+    states = [txd.init_state(cfg, device=dev) for _ in range(N_STREAMS)]
+    for s in range(N_STREAMS):                       # warm-up round
+        _, states[s] = txd.modulate_superframe(cfg, ts[s], states[s])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(N_STREAMS, n):
+            s = i % N_STREAMS
+            _, states[s] = txd.modulate_superframe(cfg, ts[i], states[s])
+        torch.cuda.synchronize()
+    n_sf = n - N_STREAMS
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d, "trace.json")
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_ms = _union_us(kernels) / 1e3 / n_sf
+    total = sum(b - a for a, b in kernels)
+    rows = []
+    for ev in prof.key_averages():        # host ops, each with its kernels
+        self_us = getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CPU and self_us > 0:
+            rows.append((self_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    print(f"dvbt profile: {n_sf} superframes, {len(kernels)} device "
+          f"activities ({len(kernels) / n_sf:.1f} per superframe), busy "
+          f"{busy_ms:.4f} ms per superframe; top ops by self CUDA time:")
+    for self_us, count, key in rows[:12]:
+        print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total:5.1f} % "
+              f"{count / n_sf:5.1f}/sf  {key[:70]}")
+    return busy_ms, len(kernels) / n_sf
+
+
+def time_papr(dev) -> list[float]:
+    """bench.py's PAPR shape: a 64M-complex chunk generated on the card,
+    pass 1 + pass 2 with 13 levels; three repeats of GSa/s."""
+    from dtv_utils_torch.analysis import papr
+    from dtv_utils_torch.utils.timing import time_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    raw = torch.randn(2 * PAPR_CHUNK, generator=g, device=dev)
+    levels = torch.from_numpy(np.power(10.0, np.arange(PAPR_LEVELS) / 10.0)
+                              .astype(np.float32)).to(dev)
+    return [PAPR_CHUNK / time_cuda(
+        lambda: (papr._pass1_chunk(raw), papr._pass2_chunk(raw, levels)),
+        iters=10) / 1e6 for _ in range(3)]
+
+
+def _tf32() -> str:
+    return f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+
+
+def _repeats(vals: list[float], fmt: str = ".3f") -> str:
+    return (f"median {sorted(vals)[1]:{fmt}} "
+            f"(repeats {', '.join(f'{v:{fmt}}' for v in vals)})")
 
 
 def main() -> int:
@@ -217,14 +471,12 @@ def main() -> int:
     from dtv_utils_torch.tx import j83b as txq
 
     golden = json.loads(GOLDEN.read_text())
+    dvbt_golden = json.loads(DVBT_GOLDEN.read_text())
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(dev)
 
     # 1. device
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[dev.index]
+    card = card_line(dev)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -245,20 +497,48 @@ def main() -> int:
     print(f"fir n={FIR_SIZES[0]}: kernel {fir_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms ({card})")
 
-    # 4. the slice, then the same input through the CLI
+    # 4. the J.83B slice, then the same input through the CLI
     launches, iq = check_slice(dev, golden)
     if launches != golden["superblocks"]:
         raise AssertionError(f"the FIR kernel ran {launches} times for "
                              f"{golden['superblocks']} superblocks")
     check_cli(golden, iq, "cuda")
 
-    # 5. serving throughput
+    # 5. the DVB-T slice, its CLI with state resume, and PAPR
+    dvbt_iq, _ = check_dvbt_slice(dev, dvbt_golden)
+    check_dvbt_cli(dvbt_golden, dvbt_iq, "cuda")
+    check_papr(dev, dvbt_golden, dvbt_iq)
+
+    # 6. serving throughput, J.83B then DVB-T (TF32 off, then on: the
+    # GF(2) products are exact either way)
     msps, sb_ms = serve(dev)
-    print(f"j83b serving: median {sorted(msps)[1]:.3f} Msamples/s "
-          f"(repeats {', '.join(f'{v:.3f}' for v in msps)}; {N_STREAMS} "
-          f"streams, {TIMED_ROUNDS} timed rounds each) on {card}")
-    print(f"j83b one stream: median {sorted(sb_ms)[1]:.3f} ms/superblock "
-          f"(repeats {', '.join(f'{v:.3f}' for v in sb_ms)}) on {card}")
+    print(f"j83b serving, {_tf32()}: {_repeats(msps)} Msamples/s "
+          f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each) on {card}")
+    print(f"j83b one stream, {_tf32()}: {_repeats(sb_ms)} ms/superblock on "
+          f"{card}")
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        msps, sf_ms = serve_dvbt(dev)
+        print(f"dvbt serving, {_tf32()}: "
+              f"{_repeats(msps)} Msamples/s ({N_STREAMS} streams, "
+              f"{TIMED_ROUNDS} timed rounds each; real time is "
+              f"{DVBT_FLOOR_MSPS:.6f} per stream) on {card}")
+        print(f"dvbt one stream, {_tf32()}: "
+              f"{_repeats(sf_ms)} ms/superframe on {card}")
+        busy_ms, _ = profile_dvbt(dev)
+        sf4_ms = (dvbt_flagship().samples_per_superframe
+                  / (sorted(msps)[1] * 1e3))
+        print(f"dvbt device busy share, {_tf32()}: "
+              f"{busy_ms / sorted(sf_ms)[1]:.3f} of one stream's "
+              f"{sorted(sf_ms)[1]:.4f} ms/superframe, "
+              f"{busy_ms / sf4_ms:.3f} of 4-stream serving's "
+              f"{sf4_ms:.4f} ms/superframe, on {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 7. PAPR scan throughput
+    gsps = time_papr(dev)
+    print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
+          f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")
 
     print(json.dumps({"kernels": [{
         "name": "fir_interp2", "route": "cuda",

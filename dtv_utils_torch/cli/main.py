@@ -5,12 +5,24 @@ from __future__ import annotations
 import sys
 
 
+def cmd_papr(argv: list[str]) -> int:
+    from dtv_utils_torch.analysis import papr
+    return papr.cli(argv)
+
+
+def cmd_dvbt_mod(argv: list[str]) -> int:
+    from dtv_utils_torch.models import dvbt
+    return dvbt.cli(argv)
+
+
 def cmd_qam_mod(argv: list[str]) -> int:
     from dtv_utils_torch.models import j83b
     return j83b.cli(argv)
 
 
 COMMANDS = {
+    "papr": cmd_papr,
+    "dvbt-mod": cmd_dvbt_mod,
     "qam-mod": cmd_qam_mod,
 }
 

@@ -81,6 +81,7 @@ class GF:
         return state[..., ::-1]
 
 
+GF256 = GF(0x11D, 8)   # DVB field: x^8+x^4+x^3+x^2+1 (EN 300 744 §4.3.2)
 GF128 = GF(0x89, 7)    # ITU-T J.83 Annex B field: x^7+x^3+1
 
 
@@ -146,9 +147,10 @@ def gf2_matmul(x_bits: torch.Tensor, mat_bits: torch.Tensor) -> torch.Tensor:
     x_bits: [..., K] in {0,1} (any dtype), mat_bits: [K, P] in {0,1}.
     Returns uint8 [..., P].  CUDA has no integer matmul for these shapes
     (``torch._int_mm`` wants K and P to be multiples of 8; the J.83B shapes
-    are 854x35, 889x7 and 1496x8), so the product runs in float32: 0 and 1
-    are exact even in TF32, and an fp32 sum of at most K < 2^24 ones is an
-    exact integer.
+    are 854x35, 889x7 and 1496x8, DVB-T's 1329x1512), so the product runs
+    in float32: 0 and 1 are exact even in TF32, and an fp32 sum of at most
+    K < 2^24 ones is an exact integer.  Never bf16/fp16: their reductions
+    may run in reduced precision.
     """
     if mat_bits.shape[0] >= 1 << 24:
         raise ValueError("K >= 2^24 would make the float32 sum inexact")

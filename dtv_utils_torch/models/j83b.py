@@ -18,21 +18,7 @@ import numpy as np
 import torch
 
 from dtv_utils_torch.core.config import J83bConfig
-
-
-def load_ts_cycled(path: str, block_bytes: int,
-                   n_blocks: int | None) -> np.ndarray:
-    """Read a TS file and cycle it to whole blocks (as
-    ``dtv_utils_tpu/models/dvbt.py:load_ts_cycled``)."""
-    raw = np.fromfile(path, dtype=np.uint8)
-    if raw.size == 0:
-        sys.stderr.write(f"empty input file: {path}\n")
-        raise SystemExit(255)
-    if n_blocks is None:
-        n_blocks = max(1, -(-raw.size // block_bytes))
-    total = n_blocks * block_bytes
-    reps = -(-total // raw.size)
-    return np.tile(raw, reps)[:total]
+from dtv_utils_torch.models.dvbt import load_ts_cycled
 
 
 def cli(argv: list[str]) -> int:

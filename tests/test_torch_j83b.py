@@ -6,8 +6,9 @@ are bit-exact; IQ after the RRC filter agrees within atol 1e-6 (the two FIRs
 sum 50 float32 products in different orders); the stream state is equal.
 
 ``tests/golden/j83b_torch_smoke.json`` is what ``chip_smoke.py`` checks the
-card against.  It is made here from the JAX reference; regenerate it with
-``JAX_PLATFORMS=cpu python tests/test_torch_j83b.py``.
+card against.  It is made here from the JAX reference; regenerate it
+from the repository root with
+``JAX_PLATFORMS=cpu python -m tests.test_torch_j83b``.
 """
 
 import dataclasses
@@ -267,7 +268,7 @@ def test_cli_refuses_cuda_without_gpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [([], 255), (["--help"], 0),
-                                     (["dvbt-mod"], 255)])
+                                     (["dvbt2-mod"], 255)])
 def test_cli_dispatch(argv, rc):
     from dtv_utils_torch.cli.main import main
 
