@@ -13,17 +13,22 @@ against a golden made from the JAX reference:
   and its state save/resume against ``tests/golden/dvbt_torch_smoke.json``
   (``tests/test_torch_dvbt.py``);
 * PAPR: the card's report against papr.c's own goldens and against the
-  port's CPU report on the DVB-T IQ.
+  port's CPU report on the DVB-T IQ;
+* DVB-T2 BBC 32K (and one tone-reservation frame of the default profile):
+  the seeded stand-in tables' digests first, then ``modulate_stream``'s
+  grids, state and IQ, and the ``dvbt2-mod`` CLI with ``--tables``, against
+  ``tests/golden/dvbt2_torch_smoke.json`` (``tests/test_torch_dvbt2.py``).
 
-Then it times the serving shapes of ``bench.py`` (J.83B, DVB-T, PAPR) and
-profiles the DVB-T chain.  Every check raises on failure, so the exit code
-is non-zero if any phase fails.  The last two lines of stdout are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.  It never
-imports JAX.
+Then it times the serving shapes of ``bench.py`` (J.83B, DVB-T, DVB-T2,
+PAPR) and profiles the DVB-T and DVB-T2 chains.  Every check raises on
+failure, so the exit code is non-zero if any phase fails.  The last two
+lines of stdout are the kernels' JSON record and ``{"ok": true, "device":
+{...}}``.  It never imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -38,6 +43,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "j83b_torch_smoke.json"
 DVBT_GOLDEN = ROOT / "tests" / "golden" / "dvbt_torch_smoke.json"
+DVBT2_GOLDEN = ROOT / "tests" / "golden" / "dvbt2_torch_smoke.json"
+DVBT2_TABLES_GOLDEN = ROOT / "tests" / "golden" / "dvbt2_tables_bbc.txt"
 PAPR_GOLDENS = {False: ROOT / "tests" / "golden" / "papr_4096.txt",
                 True: ROOT / "tests" / "golden" / "papr_g_4096.txt"}
 
@@ -53,6 +60,10 @@ PAPR_CHUNK = 1 << 26                    # bench.py's PAPR chunk, complex
 PAPR_LEVELS = 13                        # ~ a 12 dB report
 J83B_STATE_KEYS = ("ilv_carry", "conv_a", "conv_b", "diff_state")
 DVBT_STATE_KEYS = ("packet_phase", "outer_carry", "conv_state")
+DVBT2_STATE_KEYS = ("packet_phase", "prev_tail")
+DVBT2_IQ_REL = 1e-4                     # max|d|/rms, card IQ vs the JAX CPU's
+DVBT2_TIE_REL = 1e-5                    # a TR peak may move only between
+#                                         powers this close (FFT rounding)
 
 
 def seeded_ts(seed: int, n_bytes: int) -> np.ndarray:
@@ -97,6 +108,47 @@ def dvbt_flagship():
     return DvbtConfig(mode=TransmissionMode.M8K, bandwidth_mhz=8,
                       constellation=Constellation.QAM64,
                       code_rate=CodeRate.R7_8, guard=GuardInterval.G1_32)
+
+
+def dvbt2_bbc():
+    """DVB-T2 BBC 32K profile (``dvbt2-mod --profile bbc``): bench.py's
+    ``dvbt2_32k_bbc_iq_throughput`` config, full width and depth."""
+    from dtv_utils_torch.models.dvbt2 import PROFILES
+    return PROFILES["bbc"]
+
+
+def dvbt2_papr():
+    """The default (blade) profile with tone reservation (``--papr``)."""
+    from dtv_utils_torch.models.dvbt2 import PROFILES
+    return dataclasses.replace(PROFILES["blade"], papr_tr=True)
+
+
+def dvbt2_standin_digests(T, bbc, papr) -> dict[str, str]:
+    """sha256 of every seeded stand-in table the two DVB-T2 configs use,
+    from ``T``, the ``dvbt2_tables`` module of either package.  They come
+    from ``numpy.random.default_rng``, whose stream NumPy does not promise
+    to keep across releases."""
+    def rows(*key):
+        r = T.ldpc_accumulator_rows(*key)
+        return sha256(np.asarray([len(x) for x in r], np.int64),
+                      np.concatenate([np.asarray(x, np.int64) for x in r]))
+    fb, fp = T.frame_plan(bbc), T.frame_plan(papr)
+    return {
+        "ldpc_64800_2_3": rows(bbc.code_rate.value, bbc.nldpc, bbc.nbch),
+        "ldpc_16200_l1_pre": rows(0, 16200, T.L1PRE_NBCH),
+        "ldpc_16200_l1_post": rows(1, 16200, T.L1POST_NBCH),
+        "cp_set_32768": sha256(fb["cp_set"]),
+        "tr_p2_32768": sha256(fb["tr_p2"]),
+        "cp_set_4096": sha256(fp["cp_set"]),
+        "tr_p2_4096": sha256(fp["tr_p2"]),
+        "tr_data_4096": sha256(fp["tr_data"]),
+        "cell_perm_8100": sha256(
+            T.cell_interleaver_perm(bbc.cells_per_fec_block)),
+        "cell_perm_10800": sha256(
+            T.cell_interleaver_perm(papr.cells_per_fec_block)),
+        "freq_perms_32768": sha256(*T.freq_interleaver_perms(bbc)),
+        "freq_perms_4096": sha256(*T.freq_interleaver_perms(papr)),
+    }
 
 
 def papr_fixture() -> np.ndarray:
@@ -251,6 +303,184 @@ def check_dvbt_slice(dev, golden: dict) -> tuple[np.ndarray, float]:
     return iq, rel
 
 
+def time_dvbt2_plan(dev) -> tuple[float, float]:
+    """Seconds to build the BBC host tables (cold, in this process) and to
+    upload them to ``dev``."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    t0 = time.perf_counter()
+    t2._plan(cfg)
+    t2._frame_arrays(cfg)
+    t1 = time.perf_counter()
+    t2._device_plan(cfg, dev)
+    t2._device_frame(cfg, dev, "src_fused")
+    t2._device_back(cfg, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
+
+
+def check_dvbt2_tables(golden: dict) -> None:
+    """The port's seeded stand-in tables equal the JAX reference's, checked
+    before anything is modulated so that a changed NumPy stream is named
+    as such, not found as a grid mismatch."""
+    from dtv_utils_torch.tx import dvbt2_tables as T
+
+    got = dvbt2_standin_digests(T, dvbt2_bbc(), dvbt2_papr())
+    bad = sorted(k for k, v in golden["standins"].items() if got.get(k) != v)
+    if bad or got.keys() != golden["standins"].keys():
+        raise AssertionError(
+            f"DVB-T2 stand-in tables differ from the JAX reference's: {bad} "
+            f"(numpy {np.__version__}; a Generator's stream may have changed)")
+    print(f"dvbt2 stand-in tables: {len(got)} digests equal the golden's "
+          f"(numpy {np.__version__})")
+
+
+def _dvbt2_grid(cfg, block: torch.Tensor, state):
+    """The carrier grid of one frame, through the stage functions."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    bb, state = t2.mode_adapt(cfg, block, state)
+    cells = t2.interleave_and_map(cfg, t2.fec_encode(cfg, bb))
+    return t2.build_frame_grid_fused(cfg, cells), state
+
+
+def _golden_iq(g: dict) -> tuple[np.ndarray, np.ndarray]:
+    return np.asarray(g["iq_index"]), (
+        np.asarray(g["iq_re"], np.float32)
+        + 1j * np.asarray(g["iq_im"], np.float32))
+
+
+def check_dvbt2_slice(dev, golden: dict) -> tuple[np.ndarray, float]:
+    """DVB-T2 BBC ``modulate_stream`` over the golden's frames on ``dev``:
+    each frame's grid sha256 and the final state digest equal the golden,
+    IQ at the golden's indices within DVBT2_IQ_REL, and a warm frame makes
+    no host sync.  Returns the IQ and its max|d|/rms."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    n_fr = golden["frames"]
+    blk = cfg.payload_bytes_per_frame
+    ts = seeded_ts(golden["seed"], n_fr * blk)
+    if sha256(ts) != golden["ts_sha256"]:
+        raise AssertionError("seeded_ts no longer makes the DVB-T2 input")
+
+    iq, state = t2.modulate_stream(cfg, ts, device=dev)
+    want_len = n_fr * t2.samples_per_frame(cfg)
+    if iq.shape != (want_len,) or iq.dtype != np.complex64:
+        raise AssertionError(f"IQ {iq.dtype} {iq.shape}, want complex64 "
+                             f"({want_len},)")
+    if not np.isfinite(iq.view(np.float32)).all():
+        raise AssertionError("non-finite IQ")
+    idx, want = _golden_iq(golden)
+    rel = float(np.abs(iq[idx] - want).max() / golden["iq_rms"])
+    print(f"dvbt2 bbc modulate_stream: {n_fr} frames; IQ at {idx.size} "
+          f"golden indices: max|d|/rms={rel:.3e} (bound {DVBT2_IQ_REL:g})")
+    if not rel < DVBT2_IQ_REL:
+        raise AssertionError(f"DVB-T2 IQ max|d|/rms {rel:.3e} >= "
+                             f"{DVBT2_IQ_REL:g}")
+    if state_digest(t2.state_to_numpy(state),
+                    DVBT2_STATE_KEYS) != golden["state_sha256"]:
+        raise AssertionError("DVB-T2 final state differs from the golden")
+
+    st = t2.init_state(cfg, device=dev)
+    for i in range(n_fr):
+        block = torch.from_numpy(ts[i * blk:(i + 1) * blk]).to(dev)
+        grid, st = _dvbt2_grid(cfg, block, st)
+        if sha256(torch.view_as_real(grid).cpu().numpy()) \
+                != golden["grid_sha256"][i]:
+            raise AssertionError(f"DVB-T2 frame {i}: grid differs from "
+                                 "golden")
+    print("dvbt2 grid sha256 per frame and state digest match the golden")
+
+    if dev.type == "cuda":          # a warm frame may not sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t2.modulate_frame(cfg, block, st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("dvbt2 modulate_frame ran with no host sync")
+    return iq, rel
+
+
+def check_dvbt2_papr(dev, golden: dict) -> float:
+    """One frame of the default profile with tone reservation: the grid is
+    bit-exact; the peak each TR iteration picks per symbol is the
+    reference's, except where two powers tie within DVBT2_TIE_REL (printed
+    with both indices and powers; those symbols leave the IQ check); the
+    other symbols' IQ within DVBT2_IQ_REL.  Returns that max|d|/rms."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    g = golden["papr"]
+    cfg = dvbt2_papr()
+    ts = seeded_ts(g["seed"], cfg.payload_bytes_per_frame)
+    if sha256(ts) != g["ts_sha256"]:
+        raise AssertionError("seeded_ts no longer makes the TR input")
+    iq, _ = t2.modulate_stream(cfg, ts, device=dev)
+    grid, _ = _dvbt2_grid(cfg, torch.from_numpy(ts).to(dev),
+                          t2.init_state(cfg, device=dev))
+    if sha256(torch.view_as_real(grid).cpu().numpy()) != g["grid_sha256"]:
+        raise AssertionError("DVB-T2 tone-reservation frame: grid differs "
+                             "from golden")
+    x = t2.time_symbols(cfg, grid)
+    flipped: dict[int, int] = {}
+    for it, want_m in enumerate(g["tr_peaks"]):
+        power = (x.real * x.real + x.imag * x.imag).cpu().numpy()
+        x, m = t2._tr_step(cfg, x)
+        for sym in np.nonzero(m.cpu().numpy() != np.asarray(want_m))[0]:
+            if sym in flipped:
+                continue
+            a, b = int(want_m[sym]), int(m[sym])
+            pa, pb = float(power[sym, a]), float(power[sym, b])
+            print(f"dvbt2 tone reservation flip: symbol {sym}, iteration "
+                  f"{it}: reference peak {a} (|x|^2 {pa:.9g} here), this "
+                  f"run's peak {b} (|x|^2 {pb:.9g})")
+            if abs(pb - pa) > DVBT2_TIE_REL * pb:
+                raise AssertionError("a TR peak moved between powers that "
+                                     "do not tie")
+            flipped[int(sym)] = it
+    idx, want = _golden_iq(g)
+    sym_of = (idx - 2048) // (cfg.fft_size + cfg.guard_samples)
+    keep = ~np.isin(sym_of, list(flipped))
+    rel = float(np.abs(iq[idx[keep]] - want[keep]).max() / g["iq_rms"])
+    print(f"dvbt2 tone reservation (blade, 1 frame): grid equals the "
+          f"golden; {len(flipped)} peak flips; IQ at {keep.sum()} of "
+          f"{idx.size} golden indices: max|d|/rms={rel:.3e} (bound "
+          f"{DVBT2_IQ_REL:g})")
+    if not rel < DVBT2_IQ_REL:
+        raise AssertionError(f"DVB-T2 TR IQ max|d|/rms {rel:.3e} >= "
+                             f"{DVBT2_IQ_REL:g}")
+    return rel
+
+
+def check_dvbt2_cli(golden: dict, iq: np.ndarray, device: str) -> None:
+    """``dvbt2-mod --profile bbc`` writes exactly ``iq``; ``--tables``
+    prints the JAX CLI's report and exits 3 (stand-ins active)."""
+    cfg = dvbt2_bbc()
+    ts = seeded_ts(golden["seed"],
+                   golden["frames"] * cfg.payload_bytes_per_frame)
+    cmd = [sys.executable, "-m", "dtv_utils_torch.cli", "dvbt2-mod",
+           "--profile", "bbc"]
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = Path(d, "in.ts"), Path(d, "out.cfile")
+        ts.tofile(src)
+        subprocess.run([*cmd, "-n", str(golden["frames"]), str(src),
+                        str(dst), "--device", device], cwd=ROOT, check=True,
+                       timeout=300, stdout=subprocess.DEVNULL)
+        if dst.read_bytes() != iq.tobytes():
+            raise AssertionError("dvbt2-mod output differs from "
+                                 "modulate_stream")
+    res = subprocess.run([*cmd, "--tables"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    if res.returncode != 3 or res.stdout != DVBT2_TABLES_GOLDEN.read_text():
+        raise AssertionError(f"dvbt2-mod --tables: exit {res.returncode}, "
+                             "or its report differs from the JAX CLI's")
+    print("dvbt2-mod output equals modulate_stream's; --tables equals the "
+          "JAX CLI's report and exits 3")
+
+
 def _dvbt_mod(args: list[str], device: str) -> None:
     subprocess.run([sys.executable, "-m", "dtv_utils_torch.cli", "dvbt-mod",
                     *args, "--device", device],
@@ -374,6 +604,16 @@ def serve_dvbt(dev) -> tuple[list[float], list[float]]:
                   cfg.ts_bytes_per_superframe, cfg.samples_per_superframe)
 
 
+def serve_dvbt2(dev) -> tuple[list[float], list[float]]:
+    """DVB-T2 BBC serving, one T2 frame per launch."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    return _serve(dev, lambda x, st: t2.modulate_frame(cfg, x, st),
+                  lambda: t2.init_state(cfg, device=dev),
+                  cfg.payload_bytes_per_frame, t2.samples_per_frame(cfg))
+
+
 def _union_us(intervals: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, float("-inf")
@@ -384,32 +624,30 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile_dvbt(dev) -> tuple[float, float]:
-    """torch.profiler over PROFILE_ROUNDS rounds of 4-stream DVB-T serving:
-    prints the top device ops by self CUDA time; returns device-busy ms
-    per superframe (union of kernel intervals) and kernels per
-    superframe."""
+def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
+                  unit: str) -> tuple[float, float]:
+    """torch.profiler over PROFILE_ROUNDS rounds of 4-stream serving of
+    ``out, st = fn(ts, st)``: prints the top device ops by self CUDA time;
+    returns device-busy ms per block (union of kernel intervals) and
+    device activities per block."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dtv_utils_torch.tx import dvbt as txd
-
-    cfg = dvbt_flagship()
     g = torch.Generator(device=dev).manual_seed(3)
     n = N_STREAMS * (1 + PROFILE_ROUNDS)
-    ts = torch.randint(0, 256, (n, cfg.ts_bytes_per_superframe),
-                       generator=g, device=dev, dtype=torch.uint8)
-    states = [txd.init_state(cfg, device=dev) for _ in range(N_STREAMS)]
+    ts = torch.randint(0, 256, (n, block_bytes), generator=g, device=dev,
+                       dtype=torch.uint8)
+    states = [init_state() for _ in range(N_STREAMS)]
     for s in range(N_STREAMS):                       # warm-up round
-        _, states[s] = txd.modulate_superframe(cfg, ts[s], states[s])
+        _, states[s] = fn(ts[s], states[s])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(N_STREAMS, n):
             s = i % N_STREAMS
-            _, states[s] = txd.modulate_superframe(cfg, ts[i], states[s])
+            _, states[s] = fn(ts[i], states[s])
         torch.cuda.synchronize()
-    n_sf = n - N_STREAMS
+    n_blk = n - N_STREAMS
     with tempfile.TemporaryDirectory() as d:
         trace = Path(d, "trace.json")
         prof.export_chrome_trace(str(trace))
@@ -418,7 +656,7 @@ def profile_dvbt(dev) -> tuple[float, float]:
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not kernels:
         raise AssertionError("the profiler recorded no device activity")
-    busy_ms = _union_us(kernels) / 1e3 / n_sf
+    busy_ms = _union_us(kernels) / 1e3 / n_blk
     total = sum(b - a for a, b in kernels)
     rows = []
     for ev in prof.key_averages():        # host ops, each with its kernels
@@ -427,13 +665,35 @@ def profile_dvbt(dev) -> tuple[float, float]:
         if ev.device_type == DeviceType.CPU and self_us > 0:
             rows.append((self_us, ev.count, ev.key))
     rows.sort(reverse=True)
-    print(f"dvbt profile: {n_sf} superframes, {len(kernels)} device "
-          f"activities ({len(kernels) / n_sf:.1f} per superframe), busy "
-          f"{busy_ms:.4f} ms per superframe; top ops by self CUDA time:")
+    print(f"{label} profile: {n_blk} {unit}s, {len(kernels)} device "
+          f"activities ({len(kernels) / n_blk:.1f} per {unit}), busy "
+          f"{busy_ms:.4f} ms per {unit}; top ops by self CUDA time:")
     for self_us, count, key in rows[:12]:
         print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total:5.1f} % "
-              f"{count / n_sf:5.1f}/sf  {key[:70]}")
-    return busy_ms, len(kernels) / n_sf
+              f"{count / n_blk:5.1f}/{unit}  {key[:70]}")
+    return busy_ms, len(kernels) / n_blk
+
+
+def profile_dvbt(dev) -> tuple[float, float]:
+    """The DVB-T flagship under the profiler, per superframe."""
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    return profile_chain(
+        dev, "dvbt", lambda x, st: txd.modulate_superframe(cfg, x, st),
+        lambda: txd.init_state(cfg, device=dev),
+        cfg.ts_bytes_per_superframe, "superframe")
+
+
+def profile_dvbt2(dev) -> tuple[float, float]:
+    """DVB-T2 BBC under the profiler, per T2 frame."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    return profile_chain(
+        dev, "dvbt2", lambda x, st: t2.modulate_frame(cfg, x, st),
+        lambda: t2.init_state(cfg, device=dev),
+        cfg.payload_bytes_per_frame, "frame")
 
 
 def time_papr(dev) -> list[float]:
@@ -472,6 +732,7 @@ def main() -> int:
 
     golden = json.loads(GOLDEN.read_text())
     dvbt_golden = json.loads(DVBT_GOLDEN.read_text())
+    dvbt2_golden = json.loads(DVBT2_GOLDEN.read_text())
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(dev)
 
@@ -509,7 +770,17 @@ def main() -> int:
     check_dvbt_cli(dvbt_golden, dvbt_iq, "cuda")
     check_papr(dev, dvbt_golden, dvbt_iq)
 
-    # 6. serving throughput, J.83B then DVB-T (TF32 off, then on: the
+    # 6. DVB-T2: BBC host plan, the stand-in tables, the BBC slice and a
+    # tone-reservation frame against the golden, then dvbt2-mod
+    plan_s, upload_s = time_dvbt2_plan(dev)
+    print(f"dvbt2 bbc host plan: {plan_s:.3f} s to build the tables, "
+          f"{upload_s:.3f} s to upload them")
+    check_dvbt2_tables(dvbt2_golden)
+    dvbt2_iq, _ = check_dvbt2_slice(dev, dvbt2_golden)
+    check_dvbt2_papr(dev, dvbt2_golden)
+    check_dvbt2_cli(dvbt2_golden, dvbt2_iq, "cuda")
+
+    # 7. serving throughput, J.83B then DVB-T (TF32 off, then on: the
     # GF(2) products are exact either way)
     msps, sb_ms = serve(dev)
     print(f"j83b serving, {_tf32()}: {_repeats(msps)} Msamples/s "
@@ -535,7 +806,27 @@ def main() -> int:
               f"{sf4_ms:.4f} ms/superframe, on {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 7. PAPR scan throughput
+    # 8. DVB-T2 BBC serving, one frame per launch (TF32 off).  bench.py
+    # serves 4 frames per launch through the batched sharded modulator of
+    # parallel/stream.py, which waits for the parallel/ slice of the port.
+    from dtv_utils_torch.tx import dvbt2 as t2
+    spf = t2.samples_per_frame(dvbt2_bbc())
+    air_ms = float(1e3 * spf / dvbt2_bbc().sample_rate)
+    msps, fr_ms = serve_dvbt2(dev)
+    print(f"dvbt2 bbc serving, {_tf32()}: {_repeats(msps)} Msamples/s "
+          f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each, one "
+          f"frame per launch; bench.py's 4-frame batched launch is not "
+          f"ported yet) on {card}")
+    print(f"dvbt2 bbc one stream, {_tf32()}: {_repeats(fr_ms, '.4f')} "
+          f"ms/frame (air time {air_ms:.3f} ms) on {card}")
+    busy_ms, _ = profile_dvbt2(dev)
+    fr4_ms = spf / (sorted(msps)[1] * 1e3)
+    print(f"dvbt2 device busy share, {_tf32()}: "
+          f"{busy_ms / sorted(fr_ms)[1]:.3f} of one stream's "
+          f"{sorted(fr_ms)[1]:.4f} ms/frame, {busy_ms / fr4_ms:.3f} of "
+          f"4-stream serving's {fr4_ms:.4f} ms/frame, on {card}")
+
+    # 9. PAPR scan throughput
     gsps = time_papr(dev)
     print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
           f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")

@@ -20,10 +20,22 @@ def cmd_qam_mod(argv: list[str]) -> int:
     return j83b.cli(argv)
 
 
+def cmd_dvbt2_mod(argv: list[str]) -> int:
+    from dtv_utils_torch.models import dvbt2
+    return dvbt2.cli(argv)
+
+
+def cmd_dvbt2rate(argv: list[str]) -> int:
+    from dtv_utils_torch.rates import dvbt2
+    return dvbt2.cli(argv)
+
+
 COMMANDS = {
+    "dvbt2rate": cmd_dvbt2rate,
     "papr": cmd_papr,
     "dvbt-mod": cmd_dvbt_mod,
     "qam-mod": cmd_qam_mod,
+    "dvbt2-mod": cmd_dvbt2_mod,
 }
 
 

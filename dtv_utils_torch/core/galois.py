@@ -156,3 +156,54 @@ def gf2_matmul(x_bits: torch.Tensor, mat_bits: torch.Tensor) -> torch.Tensor:
         raise ValueError("K >= 2^24 would make the float32 sum inexact")
     acc = torch.matmul(x_bits.to(torch.float32), mat_bits.to(torch.float32))
     return (acc.to(torch.int32) & 1).to(torch.uint8)
+
+
+def gf2_polymul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Multiply binary polynomials (ascending coefficient arrays) mod 2."""
+    return (np.convolve(np.asarray(a, np.int64),
+                        np.asarray(b, np.int64)) & 1).astype(np.uint8)
+
+
+def minimal_polynomial(gf: GF, j: int) -> np.ndarray:
+    """Minimal polynomial of alpha^j over GF(2), ascending coeffs, monic.
+
+    Computed from the conjugacy class {alpha^(j*2^k)} — this is how the
+    DVB BCH generator tables (EN 302 755 / EN 302 307 table 7) are *derived*,
+    so building them from the field's primitive polynomial reproduces the
+    standard's tables without transcribing them.
+    """
+    q1 = gf.q - 1
+    # conjugacy class exponents
+    expos = []
+    e = j % q1
+    while e not in expos:
+        expos.append(e)
+        e = (e * 2) % q1
+    # poly = prod (x + alpha^e) over the class, coefficients in GF(2^m)
+    poly = np.zeros(len(expos) + 1, dtype=np.int64)
+    poly[0] = 1
+    deg = 0
+    for e in expos:
+        root = gf.pow_alpha(e)
+        ng = np.zeros_like(poly)
+        ng[1: deg + 2] = poly[: deg + 1]
+        ng[: deg + 1] ^= gf.mul(poly[: deg + 1], root)
+        poly = ng
+        deg += 1
+    assert np.all((poly == 0) | (poly == 1)), "not GF(2)-valued"
+    return poly.astype(np.uint8)
+
+
+def bch_generator_poly(gf: GF, t: int) -> np.ndarray:
+    """BCH generator g(x) = prod_{i=1..t} minpoly(alpha^(2i-1)), ascending."""
+    g = np.ones(1, dtype=np.uint8)
+    for i in range(1, t + 1):
+        g = gf2_polymul(g, minimal_polynomial(gf, 2 * i - 1))
+    return g
+
+
+# BCH fields for DVB-T2/S2 FEC (EN 302 755 §6.1 / EN 302 307 §5.3):
+# normal FECFRAME over GF(2^16), poly x^16+x^5+x^3+x^2+1 (= table 7's g1);
+# short FECFRAME over GF(2^14), poly x^14+x^5+x^3+x+1.
+GF2_16_DVB = GF(0x1002D, 16)
+GF2_14_DVB = GF(0x402B, 14)
