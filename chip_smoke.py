@@ -19,16 +19,27 @@ against a golden made from the JAX reference:
   grids, state and IQ, and the ``dvbt2-mod`` CLI with ``--tables``, against
   ``tests/golden/dvbt2_torch_smoke.json`` (``tests/test_torch_dvbt2.py``).
 
-Then it times the serving shapes of ``bench.py`` (J.83B, DVB-T, DVB-T2,
-PAPR) and profiles the DVB-T and DVB-T2 chains.  Every check raises on
-failure, so the exit code is non-zero if any phase fails.  The last two
-lines of stdout are the kernels' JSON record and ``{"ok": true, "device":
-{...}}``.  It never imports JAX.
+The FIR kernel is checked at the main path's size and at edge sizes, on
+rows at every 4-byte alignment and in chained calls, and timed cold (L2
+holding none of its data) and warm beside its bound, its plain version and
+one cuDNN call that computes the same function.  Then the script times the
+serving shapes of ``bench.py`` (J.83B, DVB-T, DVB-T2, PAPR) and profiles
+the J.83B, DVB-T and DVB-T2 chains.  Every check raises on failure, so the
+exit code is non-zero if any phase fails.  The last two lines of stdout are
+the kernels' JSON record and ``{"ok": true, "device": {...}}``.  It never
+imports JAX.
+
+``python3 chip_smoke.py --j83b-ab TREE`` only profiles J.83B, with the
+package of TREE (another tree of this repository, e.g. the parent commit
+unpacked by ``git archive``) and with this one in turns, and prints the
+device time per superblock that this tree saves.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import functools
 import hashlib
 import json
 import subprocess
@@ -39,6 +50,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "j83b_torch_smoke.json"
@@ -51,6 +63,12 @@ PAPR_GOLDENS = {False: ROOT / "tests" / "golden" / "papr_4096.txt",
 FIR_TOL = dict(atol=1e-6, rtol=1e-6)   # kernel vs plain: fp32 sums in two orders
 IQ_ATOL = 2e-6                          # card IQ vs the JAX reference's on a CPU
 FIR_SIZES = (1_806_210, 40_000, 1)      # main-path n, a ragged tile, one cell
+FIR_EDGE_SIZES = (48, 49, 1_023, 1_025, 1_000_001, 4_097)
+FIR_OFFSETS = (1, 2, 3)                 # floats past a 16-byte boundary
+FIR_SETS = 6                            # 6 x 43.35 MB: more than the L2
+FIR_TIMED = 24                          # launches per timing
+HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
+FP32_FLOPS = 67e12                      # fp32 outside the tensor cores
 N_STREAMS = 4                           # bench.py's serving shape
 TIMED_ROUNDS = 25                       # per repeat; 3 repeats show the spread
 DVBT_IQ_REL = 1e-4                      # max|d|/rms, card IQ vs the JAX CPU's
@@ -157,20 +175,45 @@ def papr_fixture() -> np.ndarray:
     return (rng.standard_normal(8192) * 0.25).astype(np.float32)
 
 
+def _fir_case(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    torch.testing.assert_close(got, want, **FIR_TOL)
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    print(f"fir {label}: max|d|={err:.3e}")
+    return err
+
+
+def _misaligned_rows(g, dev, n: int, off: int) -> torch.Tensor:
+    """[2, n] rows ``off`` floats into a buffer whose row stride is a
+    multiple of 4 floats, so that no row starts 16-byte aligned."""
+    buf = torch.randn(2, (n + off + 3) // 4 * 4, generator=g, device=dev)
+    return buf[:, off:off + n]
+
+
 def check_fir(dev, taps) -> float:
-    """Kernel against the plain version on the card; returns max |Δ|."""
+    """Kernel against the plain version on the card; returns max |Δ|.
+    Sizes: the main path's, a ragged tile, one cell, history-only windows
+    (n <= 49), tile edges and an odd n (output row 1 only 8-byte aligned);
+    the split entry on rows that start 1, 2 or 3 floats past a 16-byte
+    boundary; chained calls with the 49-sample history carried."""
     from dtv_utils_torch.ops import fir
+    from dtv_utils_torch.tx import j83b as txq
 
     g = torch.Generator(device=dev).manual_seed(83)
     worst = 0.0
-    for n in FIR_SIZES:
+    for n in FIR_SIZES + FIR_EDGE_SIZES:
         x = torch.randn(2, fir.HIST + n, generator=g, device=dev)
-        got = fir.polyphase_interp2(x, taps, n)
-        want = fir.interp2_reference(x, taps, n)
-        torch.testing.assert_close(got, want, **FIR_TOL)
-        err = (got - want).abs().max().item()
-        print(f"fir n={n}: max|d|={err:.3e}")
-        worst = max(worst, err)
+        worst = max(worst, _fir_case(
+            f"n={n}", fir.polyphase_interp2(x, taps, n),
+            fir.interp2_reference(x, taps, n)))
+    for n in (FIR_SIZES[0], FIR_EDGE_SIZES[-1]):
+        for off in FIR_OFFSETS:
+            tail = _misaligned_rows(g, dev, fir.HIST, off)
+            cells = _misaligned_rows(g, dev, n, off)
+            worst = max(worst, _fir_case(
+                f"split n={n}, rows {off} floats past 16 bytes",
+                fir.polyphase_interp2_split(tail, cells, taps),
+                fir.interp2_reference(torch.cat([tail, cells], dim=1), taps,
+                                      n)))
     # two chained calls carrying the 49-sample tail == one call on the whole
     n1, n2 = 40_000, 33_333
     cells = torch.randn(2, n1 + n2, generator=g, device=dev)
@@ -181,27 +224,104 @@ def check_fir(dev, taps) -> float:
     out2 = fir.polyphase_interp2(ext2, taps, n2)
     want = fir.interp2_reference(torch.cat([tail, cells], dim=1), taps,
                                  n1 + n2)
-    got = torch.cat([out1, out2], dim=1)
-    torch.testing.assert_close(got, want, **FIR_TOL)
-    err = (got - want).abs().max().item()
-    print(f"fir chained {n1}+{n2}: max|d|={err:.3e}")
-    return max(worst, err)
+    worst = max(worst, _fir_case(f"chained {n1}+{n2}",
+                                 torch.cat([out1, out2], dim=1), want))
+    # the stream's own chaining (split entry), with a piece shorter than 49
+    for pieces in ((20, 40_000), (40_000, 20, 7, 33_333)):
+        cells = torch.randn(2, sum(pieces), generator=g, device=dev)
+        tail = torch.randn(2, fir.HIST, generator=g, device=dev)
+        want = fir.interp2_reference(torch.cat([tail, cells], dim=1), taps,
+                                     sum(pieces))
+        outs, t, at = [], tail, 0
+        for p in pieces:
+            out, t = txq.rrc_interpolate(cells[:, at:at + p], t, taps)
+            outs.append(out)
+            at += p
+        if not torch.equal(t, cells[:, -fir.HIST:]):
+            raise AssertionError("rrc_interpolate's history is not the last "
+                                 f"{fir.HIST} cells")
+        worst = max(worst, _fir_case(
+            "rrc_interpolate chained " + "+".join(map(str, pieces)),
+            torch.cat(outs, dim=1), want))
+    return worst
 
 
-def time_fir(dev, taps) -> tuple[float, float]:
-    """ms per call at the main-path size: kernel and plain, in turns."""
+def library_interp2(ext: torch.Tensor, w: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """The FIR as one PyTorch call, a yardstick for the kernel's time: a
+    stride-2 transposed convolution with all 100 taps ``w [1, 1, 100]``
+    (cuDNN on the card) interpolates by 2; output 98 + 2m + p is the
+    kernel's out[:, 2m + p].  The port never calls it."""
+    return F.conv_transpose1d(ext[:, None], w, stride=2)[:, 0, 98:98 + 2 * n]
+
+
+def fir_bounds_ms(n: int) -> tuple[float, float]:
+    """Least time for the FIR on an H100 SXM: (bytes, each input read and
+    each output written once, over 3.35 TB/s; FP32 FLOPs over 67 TFLOP/s)."""
+    nbytes = 4 * (2 * (49 + n) + 2 * 2 * n)
+    flops = 2 * (2 * 2 * n * 50)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def _queued_ms(calls) -> float:
+    """Mean device ms per call of ``calls``, launched back to back behind a
+    spin kernel long enough for the host to queue them all, so that no host
+    gap enters the window.  Each call is made once untimed first."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    spin = 40_000_000                               # ~20 ms of clock cycles
+    for attempt in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for c in calls:
+            c()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            break
+        spin *= 4                                   # the host fell behind
+    else:
+        print(f"note: the host took {host_ms:.3f} ms to queue {len(calls)} "
+              "calls, longer than the spin: this time includes host gaps")
+    return ev[1].elapsed_time(ev[2]) / len(calls)
+
+
+def time_fir(dev, taps) -> dict[str, float]:
+    """Device ms per call at the main-path size for the kernel, the plain
+    version and the one-call yardstick, each cold (FIR_TIMED launches over
+    FIR_SETS distinct input and output sets, ~260 MB, so the 50 MB L2
+    holds none of a launch's data) and warm (the same set every launch), in
+    turns: library, plain, kernel, kernel, plain, library."""
     from dtv_utils_torch.ops import fir
-    from dtv_utils_torch.utils.timing import time_cuda
 
     n = FIR_SIZES[0]
-    x = torch.randn(2, fir.HIST + n, device=dev)
-    runs = {"kernel": [], "plain": []}
-    fns = {"kernel": lambda: fir.polyphase_interp2(x, taps, n),
-           "plain": lambda: fir.interp2_reference(x, taps, n)}
-    for side in ("plain", "kernel", "kernel", "plain"):
-        runs[side].append(time_cuda(fns[side], iters=20))
-    print(f"fir timings (ms): {runs}")
-    return (sum(runs["kernel"]) / 2, sum(runs["plain"]) / 2)
+    g = torch.Generator(device=dev).manual_seed(84)
+    exts = [torch.randn(2, fir.HIST + n, generator=g, device=dev)
+            for _ in range(FIR_SETS)]
+    outs = [torch.empty(2, 2 * n, device=dev) for _ in range(FIR_SETS)]
+    ph = fir._phase_taps(np.asarray(taps, np.float32).tobytes())
+    w = torch.from_numpy(np.array(taps, np.float32)).to(dev)[None, None]
+    fns = {
+        "kernel": lambda k: fir._launch(exts[k][:, :fir.HIST],
+                                        exts[k][:, fir.HIST:], outs[k], ph),
+        "plain": lambda k: fir.interp2_reference(exts[k], taps, n),
+        "library": lambda k: library_interp2(exts[k], w, n),
+    }
+    runs: dict[str, list[float]] = {}
+    for side in ("library", "plain", "kernel", "kernel", "plain", "library"):
+        f = fns[side]
+        for temp, sets in (("cold", range(FIR_SETS)), ("warm", [0])):
+            calls = [functools.partial(f, sets[i % len(sets)])
+                     for i in range(FIR_TIMED)]
+            runs.setdefault(f"{side}_{temp}", []).append(_queued_ms(calls))
+    print("fir timings (ms, two turns each): " + ", ".join(
+        f"{k} {v[0]:.5f}/{v[1]:.5f}" for k, v in runs.items()))
+    return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
 def check_slice(dev, golden: dict) -> tuple[int, np.ndarray]:
@@ -625,11 +745,13 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
-                  unit: str) -> tuple[float, float]:
+                  unit: str, detail=None) -> tuple[float, float]:
     """torch.profiler over PROFILE_ROUNDS rounds of 4-stream serving of
     ``out, st = fn(ts, st)``: prints the top device ops by self CUDA time;
     returns device-busy ms per block (union of kernel intervals) and
-    device activities per block."""
+    device activities per block.  ``detail(events, n_blk, total_us)``, if
+    given, reads more from the same run's trace events (with input
+    shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -641,8 +763,8 @@ def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
     for s in range(N_STREAMS):                       # warm-up round
         _, states[s] = fn(ts[s], states[s])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=detail is not None) as prof:
         for i in range(N_STREAMS, n):
             s = i % N_STREAMS
             _, states[s] = fn(ts[i], states[s])
@@ -671,7 +793,59 @@ def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
     for self_us, count, key in rows[:12]:
         print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total:5.1f} % "
               f"{count / n_blk:5.1f}/{unit}  {key[:70]}")
+    if detail is not None:
+        detail(events, n_blk, total)
     return busy_ms, len(kernels) / n_blk
+
+
+def _shapes(x):
+    """Every [a, b] pair of ints in a profiler event's nested input shapes."""
+    if isinstance(x, (list, tuple)):
+        if len(x) == 2 and all(isinstance(v, int) for v in x):
+            yield list(x)
+        else:
+            for v in x:
+                yield from _shapes(v)
+
+
+def profile_j83b(dev) -> dict[str, float]:
+    """J.83B under the profiler, per superblock: device-busy ms, device
+    activities, the FIR kernel's share of device time, and the launches
+    and share of ``cat`` ops that join the 49-sample history to the
+    superblock's cells (the concatenation the split FIR entry removed)."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.ops import fir
+    from dtv_utils_torch.tx import j83b as txq
+
+    cfg = J83bConfig()
+    n = txq.SUPERBLOCK_SYMBOLS
+    got: dict[str, float] = {}
+
+    def detail(events, n_blk, total_us):
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        fir_us = sum(e["dur"] for e in kernels
+                     if "fir_interp2" in e.get("name", ""))
+        cats = set()
+        for e in events:
+            dims = list(_shapes(e.get("args", {}).get("Input Dims")))
+            if e.get("name") == "aten::cat" and [2, fir.HIST] in dims \
+                    and [2, n] in dims:
+                cats.add(e["args"].get("External id"))
+        cat_count = len(cats)
+        cat_us = sum(e["dur"] for e in kernels
+                     if e.get("args", {}).get("External id") in cats)
+        got.update(fir_share=fir_us / total_us, cat_share=cat_us / total_us,
+                   cat_per_block=cat_count / n_blk)
+        print(f"j83b profile: FIR kernel {100 * fir_us / total_us:.2f} % of "
+              f"device time ({fir_us / n_blk / 1e3:.5f} ms per superblock); "
+              f"cat [2, {fir.HIST}] ++ [2, {n}]: {cat_count / n_blk:.1f} per "
+              f"superblock, {100 * cat_us / total_us:.2f} % of device time")
+
+    busy_ms, acts = profile_chain(
+        dev, "j83b", lambda x, st: txq.modulate_superblock(cfg, x, st),
+        lambda: txq.init_state(cfg, device=dev), txq.SUPERBLOCK_BYTES,
+        "superblock", detail)
+    return dict(busy_ms=busy_ms, activities=acts, **got)
 
 
 def profile_dvbt(dev) -> tuple[float, float]:
@@ -721,10 +895,6 @@ def _repeats(vals: list[float], fmt: str = ".3f") -> str:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; it needs an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
     from dtv_utils_torch import resolve_device
     from dtv_utils_torch.core.config import J83bConfig
     from dtv_utils_torch.ops import _build, fir
@@ -742,10 +912,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build, and ptxas's report of registers, shared memory and spills
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"built {Path(lib._name).name} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_log().splitlines():
+        if line.strip():
+            print(f"  {line.strip()}")
 
     # 3. FIR kernel against its plain version, without TF32 in the plain one
     torch.backends.cudnn.allow_tf32 = False
@@ -754,9 +927,15 @@ def main() -> int:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     taps = txq.rrc_taps(J83bConfig())
     max_err = check_fir(dev, taps)
-    fir_ms, plain_ms = time_fir(dev, taps)
-    print(f"fir n={FIR_SIZES[0]}: kernel {fir_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms ({card})")
+    t = time_fir(dev, taps)
+    bytes_ms, ops_ms = fir_bounds_ms(FIR_SIZES[0])
+    bound_ms = max(bytes_ms, ops_ms)
+    for side in ("kernel", "plain", "library"):
+        print(f"fir n={FIR_SIZES[0]} {side}: cold {t[side + '_cold']:.5f} ms "
+              f"({bound_ms / t[side + '_cold']:.3f} of the bound), warm "
+              f"{t[side + '_warm']:.5f} ms, on {card}")
+    print(f"fir bounds on an H100 SXM: HBM {bytes_ms:.5f} ms, FMA "
+          f"{ops_ms:.5f} ms")
 
     # 4. the J.83B slice, then the same input through the CLI
     launches, iq = check_slice(dev, golden)
@@ -787,6 +966,9 @@ def main() -> int:
           f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each) on {card}")
     print(f"j83b one stream, {_tf32()}: {_repeats(sb_ms)} ms/superblock on "
           f"{card}")
+    busy_ms = profile_j83b(dev)["busy_ms"]
+    print(f"j83b device busy share: {busy_ms / sorted(sb_ms)[1]:.3f} of one "
+          f"stream's {sorted(sb_ms)[1]:.4f} ms/superblock, on {card}")
     for tf32 in (False, True):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         msps, sf_ms = serve_dvbt(dev)
@@ -836,12 +1018,66 @@ def main() -> int:
         "source": "dtv_utils_torch/csrc/fir_interp2.cu",
         "replaces": "dtv_utils_tpu/ops/fir.py:66",
         "launches": launches, "max_abs_err": max_err,
-        "ms": fir_ms, "plain_ms": plain_ms}]}))
+        "ms": t["kernel_cold"], "cold_ms": t["kernel_cold"],
+        "warm_ms": t["kernel_warm"], "plain_ms": t["plain_cold"],
+        "plain_warm_ms": t["plain_warm"], "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_share_cold": bound_ms / t["kernel_cold"],
+        "library_ms": t["library_cold"],
+        "library_warm_ms": t["library_warm"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 
 
+def profile_only(package_root: str) -> int:
+    """Profile J.83B serving with the ``dtv_utils_torch`` found under
+    ``package_root``; print the result as the last line, one JSON object."""
+    sys.path.insert(0, str(Path(package_root).resolve()))
+    import dtv_utils_torch
+
+    dev = torch.device("cuda", 0)
+    print(f"package {Path(dtv_utils_torch.__file__).parent}")
+    print(json.dumps(profile_j83b(dev)))
+    return 0
+
+
+def j83b_ab(parent_root: str) -> int:
+    """J.83B's profile with the package of ``parent_root`` (another tree of
+    this repository) and with this one, in turns: parent, this, this,
+    parent, each in its own process on the same card."""
+    res: dict[str, list[dict]] = {"parent": [], "this": []}
+    card = card_line(torch.device("cuda", 0))
+    for side in ("parent", "this", "this", "parent"):
+        root = parent_root if side == "parent" else str(ROOT)
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--profile-only", root], capture_output=True,
+                             text=True, timeout=600, check=True)
+        print(run.stdout, end="")
+        res[side].append(json.loads(run.stdout.strip().splitlines()[-1]))
+    for key in ("busy_ms", "activities", "fir_share", "cat_per_block"):
+        print(f"j83b a/b {key}: parent " + ", ".join(
+            f"{r[key]:.5f}" for r in res["parent"]) + "; this " + ", ".join(
+            f"{r[key]:.5f}" for r in res["this"]) + f" (on {card})")
+    saved = (sum(r["busy_ms"] for r in res["parent"])
+             - sum(r["busy_ms"] for r in res["this"])) / 2
+    print(f"j83b device time saved per superblock: {saved:.5f} ms "
+          f"(means of two turns each, on {card})")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--j83b-ab", metavar="TREE",
+                    help="only profile J.83B, with TREE's package and this "
+                    "one in turns (TREE: e.g. `git archive` of the parent)")
+    ap.add_argument("--profile-only", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; it needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        sys.exit(1)
+    if args.profile_only:
+        sys.exit(profile_only(args.profile_only))
+    sys.exit(j83b_ab(args.j83b_ab) if args.j83b_ab else main())

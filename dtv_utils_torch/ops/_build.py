@@ -5,7 +5,10 @@ library with a plain C interface, loaded with ``ctypes``.  No PyTorch header
 is included, so the build takes seconds rather than minutes.  The library
 lands in ``build/torch_kernels/`` at the repository root, named by a hash of
 the sources and flags: an edit to a source rebuilds it, an unchanged tree
-reuses it.  Nothing here runs at import time; the first CUDA call builds.
+reuses it.  ``-Xptxas -v`` makes ptxas report each kernel's registers,
+shared memory and spills; that report is kept beside the library
+(``build_log``).  Nothing here runs at import time; the first CUDA call
+builds.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -50,6 +53,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdtv_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_log() -> str:
+    """nvcc's output for the current library (ptxas's resource report), or
+    '' if it has not been built."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build the kernels if their library is missing, load it, declare the
@@ -64,9 +74,11 @@ def library() -> ctypes.CDLL:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.fir_interp2_launch.argtypes = [vp, ll, vp, ll, ll, vp, vp]
-    lib.fir_interp2_launch.restype = ctypes.c_int
+    lib.fir_interp2_split_launch.argtypes = [vp, ll, vp, ll, vp, ll, ll,
+                                             vp, vp]
+    lib.fir_interp2_split_launch.restype = ctypes.c_int
     return lib

@@ -10,8 +10,8 @@ trellis-coded modulation → 64-QAM map → RRC interpolate-by-2, over a
 The chain runs eagerly on the device of its input.  GF(2)-linear stages are
 float32 matrix products (``core/galois.gf2_matmul``), the interleaver is one
 cached gather, the precoder a cumsum, and the RRC filter is the
-hand-written CUDA kernel behind ``ops/fir.polyphase_interp2`` (its plain
-PyTorch version on the CPU).  Host tables are NumPy copies of the
+hand-written CUDA kernel behind ``ops/fir.polyphase_interp2_split`` (its
+plain PyTorch version on the CPU).  Host tables are NumPy copies of the
 reference's builders, pinned to them by ``tests/test_torch_core.py``; each
 is uploaded once per device.  Constants marked PARITY-RISK in the reference
 (PARITY.md) are the same here.
@@ -30,7 +30,7 @@ from dtv_utils_torch.core import bits as bitops
 from dtv_utils_torch.core import cplx
 from dtv_utils_torch.core.config import J83bConfig
 from dtv_utils_torch.core.galois import GF128, gf2_matmul, gf2_poly_mod_matrix
-from dtv_utils_torch.ops.fir import HIST, polyphase_interp2
+from dtv_utils_torch.ops.fir import HIST, polyphase_interp2_split
 from dtv_utils_torch.ops.rs import RsBitEncoder
 from dtv_utils_torch.utils.device import resolve_device
 
@@ -360,11 +360,15 @@ def rrc_interpolate(cells: torch.Tensor, tail: torch.Tensor,
                     taps: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
     """Interpolate-by-2 polyphase RRC: rail-major IQ [2, n] → [2, 2n] +
     history [2, 49].  The FIR runs on the device of ``cells``: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor, the plain version for a CPU tensor.  The
+    kernel reads ``tail`` and ``cells`` where they lie (the reference
+    concatenates them first); the new history is the last 49 samples of
+    tail ++ cells, copied so that it does not keep ``cells`` alive."""
     n = cells.shape[1]
-    ext = torch.cat([tail, cells], dim=1)            # [2, 49 + n]
-    out = polyphase_interp2(ext, taps, n)            # [2, 2n]
-    return out, ext[:, -HIST:].clone()
+    out = polyphase_interp2_split(tail, cells, taps)     # [2, 2n]
+    if n >= HIST:
+        return out, cells[:, n - HIST:].clone()
+    return out, torch.cat([tail[:, n:], cells], dim=1)
 
 
 # ---------------------------------------------------------------------------
