@@ -17,14 +17,21 @@ against a golden made from the JAX reference:
 * DVB-T2 BBC 32K (and one tone-reservation frame of the default profile):
   the seeded stand-in tables' digests first, then ``modulate_stream``'s
   grids, state and IQ, and the ``dvbt2-mod`` CLI with ``--tables``, against
-  ``tests/golden/dvbt2_torch_smoke.json`` (``tests/test_torch_dvbt2.py``).
+  ``tests/golden/dvbt2_torch_smoke.json`` (``tests/test_torch_dvbt2.py``);
+* the DVB-T and J.83B receivers on the IQ above, clean and through AWGN at
+  20.0 and 27 dB: the exact input TS and every health flag, the card
+  against the port's CPU stage by stage (Viterbi, J.83B front and trellis
+  decode, RS for both fields), no host sync inside the decoders, and
+  ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``.
 
 The FIR kernel is checked at the main path's size and at edge sizes, on
 rows at every 4-byte alignment and in chained calls, and timed cold (L2
 holding none of its data) and warm beside its bound, its plain version and
-one cuDNN call that computes the same function.  Then the script times the
-serving shapes of ``bench.py`` (J.83B, DVB-T, DVB-T2, PAPR) and profiles
-the J.83B, DVB-T and DVB-T2 chains.  Every check raises on failure, so the
+one cuDNN call that computes the same function.  Then the script times
+the receivers (DVB-T at 2 and 8 superframes per call, J.83B at 2
+superblocks) and profiles one DVB-T receive call, times the serving shapes
+of ``bench.py`` (J.83B, DVB-T, DVB-T2, PAPR) and profiles the J.83B, DVB-T
+and DVB-T2 chains.  Every check raises on failure, so the
 exit code is non-zero if any phase fails.  The last two lines of stdout are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  It never
 imports JAX.
@@ -82,6 +89,14 @@ DVBT2_STATE_KEYS = ("packet_phase", "prev_tail")
 DVBT2_IQ_REL = 1e-4                     # max|d|/rms, card IQ vs the JAX CPU's
 DVBT2_TIE_REL = 1e-5                    # a TR peak may move only between
 #                                         powers this close (FFT rounding)
+RX_DVBT_SNR_DB = 20.0                   # README's point for 64-QAM 7/8
+RX_J83B_SNR_DB = 27.0                   # the J.83B operating region
+RX_NOISE_SEED = 0x5EED                  # host default_rng for the AWGN
+RX_VITERBI_BLOCKS = 64                  # card-vs-CPU Viterbi cut, blocks
+RX_J83B_GROUPS = 50_000                 # card-vs-CPU J.83B cut, groups
+RX_SUPERFRAMES = (2, 8)                 # DVB-T receive calls timed
+RX_REPEATS = 3
+HOST_PROBE_LAUNCHES = 20_000            # tiny launches per host probe
 
 
 def seeded_ts(seed: int, n_bytes: int) -> np.ndarray:
@@ -677,6 +692,338 @@ def check_cli(golden: dict, iq: np.ndarray, device: str) -> None:
     print("qam-mod CLI output equals modulate_stream's")
 
 
+def awgn(iq: np.ndarray, snr_db: float, seed: int) -> np.ndarray:
+    """``iq`` plus complex white Gaussian noise at ``snr_db`` below its
+    mean power, drawn on the host from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    p = np.mean(np.abs(iq) ** 2) / 10 ** (snr_db / 10)
+    noise = (rng.normal(0, np.sqrt(p / 2), len(iq))
+             + 1j * rng.normal(0, np.sqrt(p / 2), len(iq)))
+    return (iq + noise.astype(np.complex64)).astype(np.complex64)
+
+
+def _expect_ts(label: str, got: np.ndarray, ts: np.ndarray,
+               n_pkts: int) -> None:
+    if len(got) != n_pkts * 188 or not np.array_equal(got, ts[:len(got)]):
+        raise AssertionError(f"{label}: recovered TS ({len(got)} bytes) is "
+                             f"not the first {n_pkts} input packets")
+
+
+def check_dvbt_rx(dev, golden: dict, iq: np.ndarray):
+    """The flagship's 2 superframes back through ``rx.dvbt`` on ``dev``,
+    clean and at RX_DVBT_SNR_DB: the exact TS, every packet decodable; clean,
+    no corrected byte, pilot phases in order and every TPS frame's BCH and
+    fields equal to the config.  Returns the clean result and the noisy IQ."""
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.tx.dvbt import OUTER_I, OUTER_M
+
+    cfg = dvbt_flagship()
+    ts = seeded_ts(golden["seed"],
+                   golden["superframes"] * cfg.ts_bytes_per_superframe)
+    n_pkts = ((golden["superframes"] * cfg.rs_blocks_per_superframe * 204
+               - OUTER_I * OUTER_M * (OUTER_I - 1)) // 204)
+    res = rxd.demodulate_stream(cfg, torch.from_numpy(iq).to(dev),
+                                device=dev)
+    _expect_ts("dvbt rx clean", res.ts, ts, n_pkts)
+    if not (res.rs_ok.all() and res.rs_errors.sum() == 0 and res.phase_ok
+            and res.tps["all_bch_ok"]):
+        raise AssertionError("dvbt rx clean: an RS, phase or TPS flag is off")
+    # EN 300 744 §4.6.2: 64-QAM = 2, rate 7/8 = 4, GI 1/32 = 0, 8K = 1;
+    # frames 1 and 3 of a superframe carry the odd sync word
+    for f, fr in enumerate(res.tps["frames"]):
+        want = dict(bch_ok=True, sync="odd" if f % 2 == 0 else "even",
+                    frame_number=f % 4, constellation=2, code_rate_hp=4,
+                    guard=0, mode=1)
+        if fr != want:
+            raise AssertionError(f"dvbt rx TPS frame {f}: {fr} != {want}")
+    print(f"dvbt rx clean ({golden['superframes']} superframes): TS exact, "
+          f"{n_pkts} packets, 0 corrected bytes, phases in order, "
+          f"{len(res.tps['frames'])} TPS frames equal the config")
+    noisy = awgn(iq, RX_DVBT_SNR_DB, RX_NOISE_SEED)
+    res_n = rxd.demodulate_stream(cfg, noisy, device=dev)
+    _expect_ts(f"dvbt rx at {RX_DVBT_SNR_DB} dB", res_n.ts, ts, n_pkts)
+    if not res_n.rs_ok.all():
+        raise AssertionError(f"dvbt rx at {RX_DVBT_SNR_DB} dB: "
+                             f"{(~res_n.rs_ok).sum()} packets uncorrectable")
+    print(f"dvbt rx at {RX_DVBT_SNR_DB} dB SNR: TS exact, every packet "
+          f"decodable; RS corrected {int(res_n.rs_errors.sum())} bytes "
+          f"(at most {int(res_n.rs_errors.max())} in a packet of 204)")
+    return res, noisy
+
+
+def check_j83b_rx(dev, golden: dict, iq: np.ndarray):
+    """The J.83B slice's 2 superblocks (out of the FIR kernel) back through
+    ``rx.j83b`` on ``dev``: clean, the exact TS and every flag; at
+    RX_J83B_SNR_DB, the exact TS, RS and checksums.  Returns the clean
+    result and the noisy IQ."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.rx import j83b as rxq
+    from dtv_utils_torch.tx import j83b as txq
+
+    cfg = J83bConfig()
+    ts = seeded_ts(golden["seed"],
+                   golden["superblocks"] * txq.SUPERBLOCK_BYTES)
+    res = rxq.demodulate_stream(cfg, torch.from_numpy(iq).to(dev),
+                                device=dev)
+    n_pkts = len(res.ts) // 188
+    _expect_ts("j83b rx clean", res.ts, ts, n_pkts)
+    if not (n_pkts > 0 and res.fsync_ok and res.control_word == 6
+            and res.rs_ok.all() and res.ext_ok.all()
+            and res.checksum_ok.all() and res.rs_errors.sum() == 0):
+        raise AssertionError("j83b rx clean: a flag is off")
+    print(f"j83b rx clean ({golden['superblocks']} superblocks): TS exact, "
+          f"{n_pkts} packets; FSYNC, control word 6, RS, extension and "
+          f"checksums all ok over {len(res.rs_ok)} codewords")
+    noisy = awgn(iq, RX_J83B_SNR_DB, RX_NOISE_SEED)
+    res_n = rxq.demodulate_stream(cfg, noisy, device=dev)
+    _expect_ts(f"j83b rx at {RX_J83B_SNR_DB} dB", res_n.ts, ts, n_pkts)
+    if not (res_n.rs_ok.all() and res_n.checksum_ok.all()):
+        raise AssertionError(f"j83b rx at {RX_J83B_SNR_DB} dB: RS or "
+                             "checksum failed")
+    print(f"j83b rx at {RX_J83B_SNR_DB} dB SNR: TS exact, RS and checksums "
+          f"ok; RS corrected {int(res_n.rs_errors.sum())} symbols")
+    return res, noisy
+
+
+def _rs_cases(seed: int):
+    """(decoder, codewords, corrupted codewords, errors per word) for the
+    DVB-T RS(204,188) and the J.83B RS(127,122): 0..t errors and beyond."""
+    from dtv_utils_torch.core.galois import GF128
+    from dtv_utils_torch.ops import rs, rs_decode
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for dec, enc in ((rs_decode.DVBT_RS_DEC(), rs.DVBT_RS()),
+                     (rs_decode.RsDecoder(GF128, 122, 5, first_root=1),
+                      rs.RsBitEncoder(GF128, 122, 5, first_root=1))):
+        msgs = rng.integers(0, dec.gf.q, (512, dec.k_sym))
+        cw = np.concatenate([msgs, enc.gf.rs_encode_ref(msgs, enc.genpoly)],
+                            axis=1)
+        n_errs = np.arange(len(cw)) % (2 * dec.t + 5)
+        bad = cw.copy()
+        for p, ne in enumerate(n_errs):
+            pos = rng.choice(dec.n, ne, replace=False)
+            bad[p, pos] ^= rng.integers(1, dec.gf.q, ne)
+        out.append((dec, cw, bad, n_errs))
+    return out
+
+
+def _equal_on(label: str, card, cpu) -> None:
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    for a, b in zip(card, cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{label}: the card differs from the CPU")
+
+
+def check_rx_stages(dev, dvbt_noisy: np.ndarray, j83b_iq: np.ndarray,
+                    j83b_noisy: np.ndarray) -> None:
+    """Card against the port's CPU on identical inputs, stage by stage, and
+    no host sync inside the two decoders on device tensors."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.ops import viterbi
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.rx import j83b as rxq
+
+    cfg = dvbt_flagship()
+    rate = cfg.code_rate.value
+    carriers = rxd.iq_to_carriers(cfg, torch.from_numpy(dvbt_noisy).to(dev))
+    z = rxd.coded_llrs(cfg, rxd._extract_cells(cfg, carriers))
+    # 64 blocks of 4096 trellis steps, in whole puncture periods of 7 steps
+    cut = z[:RX_VITERBI_BLOCKS * 4096 // rate[0] * rate[1]]
+    bits = viterbi.viterbi_decode_punctured(cut, rate)
+    _equal_on("viterbi_decode_punctured", bits,
+              viterbi.viterbi_decode_punctured(cut.cpu(), rate))
+    print(f"viterbi (K=7, 7/8) on {cut.numel()} flagship LLRs at "
+          f"{RX_DVBT_SNR_DB} dB ({RX_VITERBI_BLOCKS} blocks): card bits "
+          "equal the CPU's")
+
+    jcfg = J83bConfig()
+    words = rxq.front(jcfg, torch.from_numpy(j83b_iq).to(dev))
+    _equal_on("j83b front (clean)", words,
+              rxq.front(jcfg, torch.from_numpy(j83b_iq)))
+    noisy_words = rxq.front(jcfg, torch.from_numpy(j83b_noisy).to(dev))
+    cut_w = noisy_words[:5 * RX_J83B_GROUPS]
+    _equal_on("j83b trellis decode", rxq.trellis_decode(cut_w),
+              rxq.trellis_decode(cut_w.cpu()))
+    print(f"j83b front words on the clean IQ ({words.numel()} symbols) and "
+          f"the dual Viterbi on {cut_w.numel()} noisy words: card equals "
+          "the CPU")
+
+    for dec, cw, bad, n_errs in _rs_cases(RX_NOISE_SEED):
+        x = torch.from_numpy(bad)
+        got = (dec.decode_bytes(x.to(torch.uint8).to(dev)) if dec.gf.m == 8
+               else dec.decode_words(x.to(dev)))
+        want = (dec.decode_bytes(x.to(torch.uint8)) if dec.gf.m == 8
+                else dec.decode_words(x))
+        _equal_on(f"RS GF(2^{dec.gf.m})", tuple(got), tuple(want))
+        le_t = n_errs <= dec.t
+        fixed = want[0].numpy().astype(np.int64)
+        if not (np.array_equal(fixed[le_t], cw[le_t]) and want[2].numpy()[
+                le_t].all() and np.array_equal(want[1].numpy()[le_t],
+                                               n_errs[le_t])):
+            raise AssertionError(f"RS GF(2^{dec.gf.m}) missed a word with "
+                                 "at most t errors")
+        print(f"RS GF(2^{dec.gf.m}) t={dec.t} on {len(cw)} words with 0.."
+              f"{n_errs.max()} errors: corrected words, n_err and ok equal "
+              f"the CPU's; {int((~want[2].numpy()).sum())} flagged "
+              "uncorrectable")
+
+    if dev.type == "cuda":
+        dec, _, bad, _ = _rs_cases(RX_NOISE_SEED)[0]
+        bad_dev = torch.from_numpy(bad).to(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            viterbi.viterbi_decode_punctured(cut, rate)
+            dec.decode_words(bad_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("viterbi_decode and RsDecoder.decode_words ran with no host "
+              "sync")
+
+
+def _rx_cli(tool: str, iq: np.ndarray, want: np.ndarray, device: str,
+            args=()) -> None:
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = Path(d, "in.cfile"), Path(d, "out.ts")
+        iq.tofile(src)
+        subprocess.run([sys.executable, "-m", "dtv_utils_torch.cli", tool,
+                        *args, "-o", str(dst), str(src), "--device", device],
+                       cwd=ROOT, check=True, timeout=300,
+                       stdout=subprocess.DEVNULL)
+        if dst.read_bytes() != want.tobytes():
+            raise AssertionError(f"{tool} output differs from "
+                                 "demodulate_stream's TS")
+    print(f"{tool} output equals demodulate_stream's TS")
+
+
+def _wall_s(fn, repeats: int = RX_REPEATS) -> list[float]:
+    """Host seconds of ``fn()`` (which ends with host arrays), one warm-up
+    call first."""
+    fn()
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
+            j83b_iq: np.ndarray) -> float:
+    """Receive throughput, device-resident IQ in and the host TS out: DVB-T
+    at 2 and 8 superframes per call, J.83B at 2 superblocks.  Returns the
+    median seconds of a 2-superframe DVB-T call."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.rx import j83b as rxq
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    dvbt_msps = float(cfg.sample_rate) / 1e6
+    sec2 = 0.0
+    peak = {}
+    for n_sf in RX_SUPERFRAMES:
+        if n_sf == dvbt_golden["superframes"]:
+            iq = dvbt_iq
+        else:
+            ts = seeded_ts(dvbt_golden["seed"],
+                           n_sf * cfg.ts_bytes_per_superframe)
+            iq, _ = txd.modulate_stream(cfg, ts, device=dev)
+            res = rxd.demodulate_stream(cfg, iq, device=dev)
+            _expect_ts(f"dvbt rx {n_sf} superframes", res.ts, ts,
+                       len(res.ts) // 188)
+        x = torch.from_numpy(iq).to(dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = _wall_s(
+            lambda: rxd.demodulate_stream(cfg, x, device=dev))
+        peak[n_sf] = torch.cuda.max_memory_allocated(dev) - held
+        msps = [x.numel() / s / 1e6 for s in secs]
+        print(f"dvbt rx, {n_sf} superframes per call ({x.numel()} samples, "
+              f"{1e3 * x.numel() / float(cfg.sample_rate):.3f} ms of air): "
+              f"{_repeats(msps)} Msamples/s, {_repeats(secs, '.4f')} s per "
+              f"call; real time is {dvbt_msps:.6f} Msps; peak device memory "
+              f"{peak[n_sf] / 1e9:.3f} GB above what was held before; on "
+              f"{card}")
+        if n_sf == dvbt_golden["superframes"]:
+            sec2 = sorted(secs)[1]
+    # memory grows linearly with the call's superframes: the longest input
+    # one call (and so one dvbt-rx run) fits on this card, IQ included
+    lo, hi = RX_SUPERFRAMES
+    per_sf = ((peak[hi] - peak[lo]) / (hi - lo)
+              + 8 * cfg.samples_per_superframe)
+    fixed = peak[lo] + 8 * cfg.samples_per_superframe * lo - per_sf * lo
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n_max = int((total - fixed) // per_sf)
+    air_s = n_max * cfg.samples_per_superframe / float(cfg.sample_rate)
+    print(f"dvbt rx memory: {per_sf / 1e9:.4f} GB per superframe + "
+          f"{fixed / 1e9:.3f} GB; the card's {total / 1e9:.2f} GB hold "
+          f"one call of at most {n_max} superframes ({air_s:.1f} s of air); "
+          f"on {card}")
+    jcfg = J83bConfig()
+    x = torch.from_numpy(j83b_iq).to(dev)
+    secs = _wall_s(lambda: rxq.demodulate_stream(jcfg, x, device=dev))
+    msps = [x.numel() / s / 1e6 for s in secs]
+    print(f"j83b rx, {x.numel() // rxq.SUPERBLOCK_SAMPLES} superblocks per "
+          f"call ({x.numel()} samples): {_repeats(msps)} Msamples/s, "
+          f"{_repeats(secs, '.4f')} s per call; real time is "
+          f"{float(jcfg.sample_rate) / 1e6:.6f} Msps; on {card}")
+    return sec2
+
+
+def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
+    """torch.profiler over one DVB-T receive call (2 superframes): device
+    busy time and share of the unprofiled call, device activities per call,
+    the top ops, and the share of device time in the Viterbi's two trellis
+    loops (kernels launched inside its ``viterbi_acs`` and
+    ``viterbi_traceback`` ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtv_utils_torch.rx import dvbt as rxd
+
+    cfg = dvbt_flagship()
+    x = torch.from_numpy(iq).to(dev)
+    rxd.demodulate_stream(cfg, x, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rxd.demodulate_stream(cfg, x, device=dev)
+        torch.cuda.synchronize()
+    events, acts, busy_us, total_us, rows = _trace_summary(prof)
+    busy_ms = busy_us / 1e3
+    got = {}
+    for name in ("viterbi_acs", "viterbi_traceback"):
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation" and e["name"] == name]
+        ids = {e["args"].get("External id") for e in events
+               if e.get("cat") == "cpu_op"
+               and any(a <= e["ts"] < b for a, b in spans)}
+        inside = [e for e in acts
+                  if e.get("args", {}).get("External id") in ids]
+        got[name] = (len(inside), sum(e["dur"] for e in inside))
+    loop_n = sum(n for n, _ in got.values())
+    loop_us = sum(us for _, us in got.values())
+    print(f"dvbt rx profile (1 call, 2 superframes): {len(acts)} device "
+          f"activities, busy {busy_ms:.3f} ms = {busy_ms / 1e3 / call_s:.3f} "
+          f"of the unprofiled call's {call_s:.4f} s; trellis loops "
+          f"{loop_n} activities ({loop_n / len(acts):.3f}), "
+          f"{loop_us / 1e3:.3f} ms = {loop_us / total_us:.3f} of device "
+          f"time (ACS {got['viterbi_acs'][1] / 1e3:.3f} ms over "
+          f"{got['viterbi_acs'][0]}, traceback "
+          f"{got['viterbi_traceback'][1] / 1e3:.3f} ms over "
+          f"{got['viterbi_traceback'][0]}); on {card}; top ops by self "
+          "CUDA time:")
+    for self_us, count, key in rows[:10]:
+        print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total_us:5.1f} % "
+              f"{count:6d} calls  {key[:60]}")
+    return dict(busy_ms=busy_ms, activities=len(acts), loop_share=loop_us
+                / total_us)
+
+
 def _serve(dev, fn, init_state, block_bytes: int,
            samples_per_block: int) -> tuple[list[float], list[float]]:
     """bench.py's serving shape: 4 streams round-robin, one block per
@@ -744,6 +1091,32 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+def _trace_summary(prof):
+    """Read a finished profiler session: its trace events, its device
+    activities (kernels, copies, sets), their busy time (union of the
+    intervals) and summed time in µs, and the host ops that launched device
+    work as (self CUDA µs, calls, name), largest first."""
+    from torch.autograd import DeviceType
+
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d, "trace.json")
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    acts = [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not acts:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in acts])
+    rows = []
+    for ev in prof.key_averages():        # host ops, each with its kernels
+        self_us = getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CPU and self_us > 0:
+            rows.append((self_us, ev.count, ev.key))
+    return (events, acts, busy_us, sum(e["dur"] for e in acts),
+            sorted(rows, reverse=True))
+
+
 def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
                   unit: str, detail=None) -> tuple[float, float]:
     """torch.profiler over PROFILE_ROUNDS rounds of 4-stream serving of
@@ -752,7 +1125,6 @@ def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
     device activities per block.  ``detail(events, n_blk, total_us)``, if
     given, reads more from the same run's trace events (with input
     shapes)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -770,23 +1142,8 @@ def profile_chain(dev, label: str, fn, init_state, block_bytes: int,
             _, states[s] = fn(ts[i], states[s])
         torch.cuda.synchronize()
     n_blk = n - N_STREAMS
-    with tempfile.TemporaryDirectory() as d:
-        trace = Path(d, "trace.json")
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not kernels:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_ms = _union_us(kernels) / 1e3 / n_blk
-    total = sum(b - a for a, b in kernels)
-    rows = []
-    for ev in prof.key_averages():        # host ops, each with its kernels
-        self_us = getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-        if ev.device_type == DeviceType.CPU and self_us > 0:
-            rows.append((self_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    events, kernels, busy_us, total, rows = _trace_summary(prof)
+    busy_ms = busy_us / 1e3 / n_blk
     print(f"{label} profile: {n_blk} {unit}s, {len(kernels)} device "
           f"activities ({len(kernels) / n_blk:.1f} per {unit}), busy "
           f"{busy_ms:.4f} ms per {unit}; top ops by self CUDA time:")
@@ -894,6 +1251,20 @@ def _repeats(vals: list[float], fmt: str = ".3f") -> str:
             f"(repeats {', '.join(f'{v:{fmt}}' for v in vals)})")
 
 
+def host_probe_us(dev) -> float:
+    """Host µs per launch of HOST_PROBE_LAUNCHES tiny in-place adds,
+    enqueued back to back (the card runs each faster than the host
+    enqueues it): the launch cost every eager chain pays."""
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_PROBE_LAUNCHES):
+        x.add_(1)
+    us = (time.perf_counter() - t0) / HOST_PROBE_LAUNCHES * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def main() -> int:
     from dtv_utils_torch import resolve_device
     from dtv_utils_torch.core.config import J83bConfig
@@ -959,8 +1330,26 @@ def main() -> int:
     check_dvbt2_papr(dev, dvbt2_golden)
     check_dvbt2_cli(dvbt2_golden, dvbt2_iq, "cuda")
 
-    # 7. serving throughput, J.83B then DVB-T (TF32 off, then on: the
-    # GF(2) products are exact either way)
+    # 7. the DVB-T and J.83B receivers: loop-back of the IQ above, clean and
+    # through AWGN, the card against the port's CPU stage by stage, the
+    # CLIs, receive throughput and a profile of one DVB-T call
+    t_rx = time.perf_counter()
+    dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
+    j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
+    check_rx_stages(dev, dvbt_noisy, iq, j83b_noisy)
+    _rx_cli("dvbt-rx", dvbt_iq, dvbt_rx.ts, "cuda")
+    _rx_cli("qam-rx", iq, j83b_rx.ts, "cuda")
+    call_s = time_rx(dev, card, dvbt_golden, dvbt_iq, iq)
+    profile_dvbt_rx(dev, card, dvbt_iq, call_s)
+    del dvbt_rx, j83b_rx, dvbt_noisy, j83b_noisy
+    torch.cuda.empty_cache()        # the serving timings start as before
+    print(f"receiver phase: {time.perf_counter() - t_rx:.1f} s")
+
+    # 8. serving throughput, J.83B then DVB-T (TF32 off, then on: the
+    # GF(2) products are exact either way), after the host's cost per
+    # launch, which sets these host-bound timings
+    print(f"host probe: {host_probe_us(dev):.3f} µs per tiny launch, on "
+          f"{card}")
     msps, sb_ms = serve(dev)
     print(f"j83b serving, {_tf32()}: {_repeats(msps)} Msamples/s "
           f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each) on {card}")
@@ -988,7 +1377,7 @@ def main() -> int:
               f"{sf4_ms:.4f} ms/superframe, on {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 8. DVB-T2 BBC serving, one frame per launch (TF32 off).  bench.py
+    # 9. DVB-T2 BBC serving, one frame per launch (TF32 off).  bench.py
     # serves 4 frames per launch through the batched sharded modulator of
     # parallel/stream.py, which waits for the parallel/ slice of the port.
     from dtv_utils_torch.tx import dvbt2 as t2
@@ -1008,7 +1397,7 @@ def main() -> int:
           f"{sorted(fr_ms)[1]:.4f} ms/frame, {busy_ms / fr4_ms:.3f} of "
           f"4-stream serving's {fr4_ms:.4f} ms/frame, on {card}")
 
-    # 9. PAPR scan throughput
+    # 10. PAPR scan throughput
     gsps = time_papr(dev)
     print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
           f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")

@@ -25,6 +25,16 @@ def cmd_dvbt2_mod(argv: list[str]) -> int:
     return dvbt2.cli(argv)
 
 
+def cmd_dvbt_rx(argv: list[str]) -> int:
+    from dtv_utils_torch.models import dvbt_rx
+    return dvbt_rx.cli(argv)
+
+
+def cmd_qam_rx(argv: list[str]) -> int:
+    from dtv_utils_torch.models import rx_cli
+    return rx_cli.qam_rx_cli(argv)
+
+
 def cmd_dvbt2rate(argv: list[str]) -> int:
     from dtv_utils_torch.rates import dvbt2
     return dvbt2.cli(argv)
@@ -36,6 +46,8 @@ COMMANDS = {
     "dvbt-mod": cmd_dvbt_mod,
     "qam-mod": cmd_qam_mod,
     "dvbt2-mod": cmd_dvbt2_mod,
+    "dvbt-rx": cmd_dvbt_rx,
+    "qam-rx": cmd_qam_rx,
 }
 
 

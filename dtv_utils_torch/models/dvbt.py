@@ -31,10 +31,9 @@ _GUARDS = {"1/32": GuardInterval.G1_32, "1/16": GuardInterval.G1_16,
            "1/8": GuardInterval.G1_8, "1/4": GuardInterval.G1_4}
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="dtv dvbt-mod",
-        description="Modulate a DVB-T signal (PyTorch/CUDA)")
+def add_config_args(p: argparse.ArgumentParser) -> None:
+    """The options that pick a ``DvbtConfig`` (``config_from_args`` reads
+    them); ``dvbt-mod`` and ``dvbt-rx`` share them."""
     p.add_argument("-m", "--mode", default="t8k",
                    help="# of carriers. Options: t2k, t8k (default).")
     p.add_argument("-c", "--channel", default=8, type=int, metavar="CH",
@@ -46,6 +45,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--guard", dest="interval", default="1/32",
                    metavar="D",
                    help="guard interval. 1/32 (default), 1/16, 1/8, 1/4.")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dtv dvbt-mod",
+        description="Modulate a DVB-T signal (PyTorch/CUDA)")
+    add_config_args(p)
     p.add_argument("-f", "--freq", default=429e6, type=float,
                    help="center frequency (Hz). Ignored (no SDR output).")
     p.add_argument("--txvga1", default=-6, type=int, metavar="gain",
