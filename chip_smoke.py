@@ -22,14 +22,21 @@ against a golden made from the JAX reference:
   20.0 and 27 dB: the exact input TS and every health flag, the card
   against the port's CPU stage by stage (Viterbi, J.83B front and trellis
   decode, RS for both fields), no host sync inside the decoders, and
-  ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``.
+  ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``; 24 DVB-T
+  superframes under a 12 GB memory cap, equal to the uncapped call;
+* the DVB-T2 receiver on the BBC frames above, hard and soft (clean and
+  at RX_DVBT2_SNR_DB), and on 2 blade frames soft at 14.5 dB: the exact TS
+  with every flag and the signalled L1 fields, the card against the CPU
+  (hard words, the min-sum decoder, the syndrome), no host sync in the
+  decoder or the frame decode, and ``dvbt2-rx``.
 
 The FIR kernel is checked at the main path's size and at edge sizes, on
 rows at every 4-byte alignment and in chained calls, and timed cold (L2
 holding none of its data) and warm beside its bound, its plain version and
 one cuDNN call that computes the same function.  Then the script times
 the receivers (DVB-T at 2 and 8 superframes per call, J.83B at 2
-superblocks) and profiles one DVB-T receive call, times the serving shapes
+superblocks, DVB-T2 BBC at 2 frames hard and soft) and profiles one DVB-T
+and one soft DVB-T2 receive call, times the serving shapes
 of ``bench.py`` (J.83B, DVB-T, DVB-T2, PAPR) and profiles the J.83B, DVB-T
 and DVB-T2 chains.  Every check raises on failure, so the
 exit code is non-zero if any phase fails.  The last two lines of stdout are
@@ -45,6 +52,7 @@ device time per superblock that this tree saves.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -96,6 +104,12 @@ RX_VITERBI_BLOCKS = 64                  # card-vs-CPU Viterbi cut, blocks
 RX_J83B_GROUPS = 50_000                 # card-vs-CPU J.83B cut, groups
 RX_SUPERFRAMES = (2, 8)                 # DVB-T receive calls timed
 RX_REPEATS = 3
+RX_CAP_BYTES = 12e9                     # set_per_process_memory_fraction cap
+RX_CAP_SUPERFRAMES = (12, 24)           # DVB-T calls decoded under the cap
+RX_SLOPE_WORKING_BYTES = 4 << 30        # pinned for the memory slope
+RX_DVBT2_SNR_DB = 23.0                  # BBC 256-QAM 2/3 soft: 2 dB of margin
+RX_BLADE_SNR_DB = 14.5                  # the reference's 64-QAM 2/3 point
+RX_LDPC_BLOCKS = 8                      # card-vs-CPU LDPC cut, FEC blocks
 HOST_PROBE_LAUNCHES = 20_000            # tiny launches per host probe
 
 
@@ -898,6 +912,31 @@ def _rx_cli(tool: str, iq: np.ndarray, want: np.ndarray, device: str,
     print(f"{tool} output equals demodulate_stream's TS")
 
 
+@contextlib.contextmanager
+def _patched(module, name: str, value):
+    """``module.name`` set to ``value`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def _counted(module, name: str):
+    """Count the calls of ``module.name`` inside the block (a one-element
+    list, read after it)."""
+    fn, n = getattr(module, name), [0]
+
+    def counting(*args, **kwargs):
+        n[0] += 1
+        return fn(*args, **kwargs)
+
+    with _patched(module, name, counting):
+        yield n
+
+
 def _wall_s(fn, repeats: int = RX_REPEATS) -> list[float]:
     """Host seconds of ``fn()`` (which ends with host arrays), one warm-up
     call first."""
@@ -921,10 +960,11 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
     from dtv_utils_torch.rx import j83b as rxq
     from dtv_utils_torch.tx import dvbt as txd
 
+    from dtv_utils_torch.ops import viterbi
+
     cfg = dvbt_flagship()
     dvbt_msps = float(cfg.sample_rate) / 1e6
     sec2 = 0.0
-    peak = {}
     for n_sf in RX_SUPERFRAMES:
         if n_sf == dvbt_golden["superframes"]:
             iq = dvbt_iq
@@ -941,29 +981,18 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
         torch.cuda.reset_peak_memory_stats(dev)
         secs = _wall_s(
             lambda: rxd.demodulate_stream(cfg, x, device=dev))
-        peak[n_sf] = torch.cuda.max_memory_allocated(dev) - held
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        with _counted(viterbi, "_acs") as passes:
+            rxd.demodulate_stream(cfg, x, device=dev)
         msps = [x.numel() / s / 1e6 for s in secs]
         print(f"dvbt rx, {n_sf} superframes per call ({x.numel()} samples, "
               f"{1e3 * x.numel() / float(cfg.sample_rate):.3f} ms of air): "
               f"{_repeats(msps)} Msamples/s, {_repeats(secs, '.4f')} s per "
-              f"call; real time is {dvbt_msps:.6f} Msps; peak device memory "
-              f"{peak[n_sf] / 1e9:.3f} GB above what was held before; on "
-              f"{card}")
+              f"call; real time is {dvbt_msps:.6f} Msps; {passes[0]} ACS "
+              f"pass(es); peak device memory {peak / 1e9:.3f} GB above what "
+              f"was held before; on {card}")
         if n_sf == dvbt_golden["superframes"]:
             sec2 = sorted(secs)[1]
-    # memory grows linearly with the call's superframes: the longest input
-    # one call (and so one dvbt-rx run) fits on this card, IQ included
-    lo, hi = RX_SUPERFRAMES
-    per_sf = ((peak[hi] - peak[lo]) / (hi - lo)
-              + 8 * cfg.samples_per_superframe)
-    fixed = peak[lo] + 8 * cfg.samples_per_superframe * lo - per_sf * lo
-    total = torch.cuda.get_device_properties(dev).total_memory
-    n_max = int((total - fixed) // per_sf)
-    air_s = n_max * cfg.samples_per_superframe / float(cfg.sample_rate)
-    print(f"dvbt rx memory: {per_sf / 1e9:.4f} GB per superframe + "
-          f"{fixed / 1e9:.3f} GB; the card's {total / 1e9:.2f} GB hold "
-          f"one call of at most {n_max} superframes ({air_s:.1f} s of air); "
-          f"on {card}")
     jcfg = J83bConfig()
     x = torch.from_numpy(j83b_iq).to(dev)
     secs = _wall_s(lambda: rxq.demodulate_stream(jcfg, x, device=dev))
@@ -973,6 +1002,89 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
           f"{_repeats(secs, '.4f')} s per call; real time is "
           f"{float(jcfg.sample_rate) / 1e6:.6f} Msps; on {card}")
     return sec2
+
+
+def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
+    """``dvbt-rx``'s memory no longer grows with its input's length: under
+    a RX_CAP_BYTES ``set_per_process_memory_fraction`` cap (the unpassed
+    decoder needed ~1.09 GB per superframe, ~26 GB for 24), the flagship's
+    24 superframes decode to the exact TS, equal to the same call without
+    the cap.  The passes are sized from the memory left, so the peak does
+    not follow the length; the slope per superframe (IQ included) is
+    measured at 12 and 24 superframes with the working memory pinned to
+    RX_SLOPE_WORKING_BYTES, so that both calls run passes of one size."""
+    from dtv_utils_torch.ops import viterbi
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    spf = cfg.samples_per_superframe
+    lo, hi = RX_CAP_SUPERFRAMES
+    ts = seeded_ts(dvbt_golden["seed"], hi * cfg.ts_bytes_per_superframe)
+    iq, _ = txd.modulate_stream(cfg, ts, device=dev)
+    x = torch.from_numpy(iq).to(dev)
+    del iq
+    t0 = time.perf_counter()
+    free = rxd.demodulate_stream(cfg, x, device=dev)
+    free_s = time.perf_counter() - t0
+    _expect_ts(f"dvbt rx {hi} superframes", free.ts, ts, len(free.ts) // 188)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def pinned(_dev) -> int:
+        return RX_SLOPE_WORKING_BYTES
+
+    torch.cuda.set_per_process_memory_fraction(RX_CAP_BYTES / total, dev)
+    peak = {}
+    try:
+        for n_sf, pin in ((hi, False), (lo, True), (hi, True)):
+            with contextlib.ExitStack() as stack:
+                if pin:
+                    for mod in (rxd, viterbi):
+                        stack.enter_context(_patched(mod, "working_bytes",
+                                                     pinned))
+                held = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                res = rxd.demodulate_stream(cfg, x[:n_sf * spf], device=dev)
+                secs = time.perf_counter() - t0
+                top = torch.cuda.max_memory_allocated(dev) - held
+            _expect_ts(f"dvbt rx {n_sf} superframes under the cap", res.ts,
+                       ts, len(res.ts) // 188)
+            if pin:
+                peak[n_sf] = top
+            elif not (np.array_equal(res.ts, free.ts)
+                      and np.array_equal(res.rs_errors, free.rs_errors)
+                      and np.array_equal(res.rs_ok, free.rs_ok)
+                      and res.tps == free.tps
+                      and res.phase_ok == free.phase_ok):
+                raise AssertionError(f"dvbt rx {hi} superframes: the capped "
+                                     "call differs from the uncapped one")
+            print(f"dvbt rx, {n_sf} superframes under a "
+                  f"{RX_CAP_BYTES / 1e9:g} GB cap"
+                  + (f", working memory pinned to "
+                     f"{RX_SLOPE_WORKING_BYTES / 1e9:g} GB" if pin else "")
+                  + f": TS exact ({len(res.ts) // 188} packets"
+                  + ("" if pin else ", equal to the uncapped call's")
+                  + f"), {secs:.3f} s (uncapped {free_s:.3f} s at {hi}), "
+                  f"peak {top / 1e9:.3f} GB above the IQ held; on {card}")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    slope = (peak[hi] - peak[lo]) / (hi - lo) + 8 * spf
+    print(f"dvbt rx memory: {slope / 1e9:.4f} GB per superframe with the "
+          f"IQ, at a pinned working memory (peak {peak[lo] / 1e9:.3f} GB at "
+          f"{lo}, {peak[hi] / 1e9:.3f} GB at {hi}); on {card}")
+
+
+def _range_activities(events, acts, name: str) -> list:
+    """Device activities launched inside the profiler ranges ``name``."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] == name]
+    ids = {e["args"].get("External id") for e in events
+           if e.get("cat") == "cpu_op"
+           and any(a <= e["ts"] < b for a, b in spans)}
+    return [e for e in acts if e.get("args", {}).get("External id") in ids]
 
 
 def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
@@ -997,13 +1109,7 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
     busy_ms = busy_us / 1e3
     got = {}
     for name in ("viterbi_acs", "viterbi_traceback"):
-        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-                 if e.get("cat") == "user_annotation" and e["name"] == name]
-        ids = {e["args"].get("External id") for e in events
-               if e.get("cat") == "cpu_op"
-               and any(a <= e["ts"] < b for a, b in spans)}
-        inside = [e for e in acts
-                  if e.get("args", {}).get("External id") in ids]
+        inside = _range_activities(events, acts, name)
         got[name] = (len(inside), sum(e["dur"] for e in inside))
     loop_n = sum(n for n, _ in got.values())
     loop_us = sum(us for _, us in got.values())
@@ -1022,6 +1128,190 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
               f"{count:6d} calls  {key[:60]}")
     return dict(busy_ms=busy_ms, activities=len(acts), loop_share=loop_us
                 / total_us)
+
+
+def _expect_t2(label: str, res, ts: np.ndarray, cfg,
+               signalling: bool = True) -> None:
+    """The exact input TS, every FEC and CRC flag of the data path (LDPC,
+    BCH, BB header, sync-byte chain) and, with ``signalling``, P1, S1/S2,
+    the L1 CRCs and the L1 fields the config signals
+    (tx/dvbt2_tables.l1_pre_bits/l1_post_bits).  The L1-post cells carry
+    no FEC in either package's receiver, so under noise they are only
+    reported."""
+    from dtv_utils_torch.tx import dvbt2_tables as T
+
+    if len(res.ts) != len(ts) or not np.array_equal(res.ts, ts):
+        raise AssertionError(f"{label}: recovered TS ({len(res.ts)} bytes) "
+                             f"is not the {len(ts)}-byte input")
+    flags = dict(sync_crc=res.sync_crc_ok, ldpc=bool(res.ldpc_ok.all()),
+                 bch=bool(res.bch_ok.all()), bb_crc=bool(res.bb_crc_ok.all()))
+    l1 = dict(p1=res.p1_detected, l1_pre_crc=res.l1_pre["crc_ok"],
+              l1_post_crc=res.l1_post["crc_ok"])
+    if not all(flags.values()) or (signalling and not all(l1.values())):
+        raise AssertionError(f"{label}: a flag is off: {flags} {l1}")
+    if not signalling:
+        print(f"{label}: signalling (not required under noise): {l1}")
+        return
+    want = dict(s1=0, s2=T._S2_FFT_CODE[cfg.fft_size] << 1,
+                pilot_pattern=cfg.pilot_pattern.number,
+                num_data_symbols=cfg.data_symbols,
+                plp_mod=T._PLP_MOD[cfg.constellation.value],
+                plp_cod=T._PLP_COD[cfg.code_rate.value],
+                plp_rotation=int(cfg.rotation),
+                plp_num_blocks_max=cfg.fec_blocks)
+    got = dict(s1=res.s1, s2=res.s2, **{k: res.l1_pre[k] for k in (
+        "pilot_pattern", "num_data_symbols")}, **{k: res.l1_post[k] for k in (
+            "plp_mod", "plp_cod", "plp_rotation", "plp_num_blocks_max")})
+    if got != want:
+        raise AssertionError(f"{label}: signalling {got} != {want}")
+
+
+def check_dvbt2_rx(dev, golden: dict, iq: np.ndarray):
+    """DVB-T2 BBC's 2 frames (step 6) back through ``rx.dvbt2`` on ``dev``:
+    the hard path, the soft path clean and at RX_DVBT2_SNR_DB, then the
+    blade profile's 2 frames soft at RX_BLADE_SNR_DB; each the exact TS
+    with every flag and the signalled L1 fields.  Returns the hard result
+    and the noisy BBC IQ."""
+    from dtv_utils_torch.models.dvbt2 import PROFILES
+    from dtv_utils_torch.rx import dvbt2 as rx2
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    ts = seeded_ts(golden["seed"],
+                   golden["frames"] * cfg.payload_bytes_per_frame)
+    x = torch.from_numpy(iq).to(dev)
+    res = rx2.demodulate_stream(cfg, x, device=dev)
+    _expect_t2("dvbt2 rx bbc hard", res, ts, cfg)
+    print(f"dvbt2 rx bbc hard ({golden['frames']} frames): TS exact "
+          f"({len(ts)} bytes); P1, S1/S2 ({res.s1}, {res.s2}), L1-pre and "
+          f"L1-post CRCs and fields, LDPC, BCH, BB-header CRC over "
+          f"{res.ldpc_ok.size} FEC blocks and the sync-byte CRC chain ok")
+    soft = rx2.demodulate_stream(cfg, x, soft=True, device=dev)
+    _expect_t2("dvbt2 rx bbc soft clean", soft, ts, cfg)
+    noisy = awgn(iq, RX_DVBT2_SNR_DB, RX_NOISE_SEED)
+    soft = rx2.demodulate_stream(cfg, noisy, soft=True, device=dev)
+    _expect_t2(f"dvbt2 rx bbc soft at {RX_DVBT2_SNR_DB} dB", soft, ts, cfg,
+               signalling=False)
+    print(f"dvbt2 rx bbc soft (30 min-sum iterations): TS exact with every "
+          f"flag clean, and with every data-path flag at {RX_DVBT2_SNR_DB} "
+          "dB SNR")
+
+    blade = PROFILES["blade"]
+    ts_b = seeded_ts(golden["seed"], 2 * blade.payload_bytes_per_frame)
+    iq_b, _ = t2.modulate_stream(blade, ts_b, device=dev)
+    res_b = rx2.demodulate_stream(
+        blade, awgn(iq_b, RX_BLADE_SNR_DB, RX_NOISE_SEED), soft=True,
+        device=dev)
+    _expect_t2(f"dvbt2 rx blade soft at {RX_BLADE_SNR_DB} dB", res_b, ts_b,
+               blade, signalling=False)
+    print(f"dvbt2 rx blade (2 frames, {blade.fec_blocks} FEC blocks each) "
+          f"soft at {RX_BLADE_SNR_DB} dB SNR: TS exact with every data-path "
+          "flag")
+    return res, noisy
+
+
+def check_dvbt2_stages(dev, iq: np.ndarray, noisy: np.ndarray) -> None:
+    """Card against the port's CPU on identical inputs: the hard path's
+    words, the min-sum decoder (hard bits and ok) on RX_LDPC_BLOCKS FEC
+    blocks of the noisy BBC frame's LLRs, and the syndrome; then no host
+    sync inside ``ldpc_decode.decode`` or the per-frame decode."""
+    from dtv_utils_torch.ops import ldpc_decode
+    from dtv_utils_torch.rx import dvbt2 as rx2
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    spf = t2.samples_per_frame(cfg)
+    body = torch.from_numpy(iq[2048:spf]).to(dev)
+    _, cells = rx2._cells(cfg, body)
+    words = rx2.hard_words(cfg, cells)
+    _equal_on("dvbt2 hard words", words, rx2.hard_words(cfg, cells.cpu()))
+    _, cells_n = rx2._cells(cfg, torch.from_numpy(noisy[2048:spf]).to(dev))
+    llr = rx2.soft_llrs(cfg, cells_n)[:RX_LDPC_BLOCKS]
+    hard, ok = ldpc_decode.decode(cfg, llr)
+    _equal_on("ldpc_decode.decode", (hard, ok),
+              ldpc_decode.decode(cfg, llr.cpu()))
+    flipped = hard.clone()
+    flipped[:, ::997] ^= 1
+    _equal_on("ldpc syndrome", ldpc_decode.syndrome(cfg, flipped),
+              ldpc_decode.syndrome(cfg, flipped.cpu()))
+    print(f"dvbt2 stages: hard words ({words.numel()} cells), the min-sum "
+          f"decoder on {RX_LDPC_BLOCKS} noisy FEC blocks ({int(ok.sum())} "
+          f"converged) and the syndrome: card equals the CPU")
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ldpc_decode.decode(cfg, llr)
+            for soft in (False, True):
+                rx2._decode_frame(cfg, body, soft, 30)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print("ldpc_decode.decode and the per-frame decode (hard and soft) "
+              "ran with no host sync")
+
+
+def time_dvbt2_rx(dev, card: str, iq: np.ndarray) -> dict[str, float]:
+    """DVB-T2 BBC receive throughput, device-resident IQ in and the host TS
+    out, hard and soft, 2 frames per call; and the soft call's peak device
+    memory.  Returns the median seconds per call of each path."""
+    from dtv_utils_torch.rx import dvbt2 as rx2
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    spf = t2.samples_per_frame(cfg)
+    air_ms = 1e3 * spf / float(cfg.sample_rate)
+    x = torch.from_numpy(iq).to(dev)
+    n_fr = x.numel() // spf
+    out = {}
+    for soft in (False, True):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = _wall_s(lambda: rx2.demodulate_stream(cfg, x, soft=soft,
+                                                     device=dev))
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        msps = [x.numel() / s / 1e6 for s in secs]
+        ms_fr = [1e3 * s / n_fr for s in secs]
+        print(f"dvbt2 rx bbc {'soft' if soft else 'hard'}, {n_fr} frames per "
+              f"call ({x.numel()} samples): {_repeats(msps)} Msamples/s, "
+              f"{_repeats(ms_fr, '.2f')} ms per frame (air time "
+              f"{air_ms:.3f} ms; real time is "
+              f"{float(cfg.sample_rate) / 1e6:.6f} Msps); peak device memory "
+              f"{peak / 1e9:.3f} GB above the IQ held; on {card}")
+        out["soft" if soft else "hard"] = sorted(secs)[1]
+    return out
+
+
+def profile_dvbt2_rx(dev, card: str, iq: np.ndarray, call_s: float) -> None:
+    """torch.profiler over one soft DVB-T2 BBC receive call (2 frames):
+    device activities per frame, busy share of the unprofiled call, the
+    ``ldpc_minsum`` range's share of device time, and the top ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtv_utils_torch.rx import dvbt2 as rx2
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    x = torch.from_numpy(iq).to(dev)
+    n_fr = x.numel() // t2.samples_per_frame(cfg)
+    rx2.demodulate_stream(cfg, x, soft=True, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rx2.demodulate_stream(cfg, x, soft=True, device=dev)
+        torch.cuda.synchronize()
+    events, acts, busy_us, total_us, rows = _trace_summary(prof)
+    ldpc = _range_activities(events, acts, "ldpc_minsum")
+    ldpc_us = sum(e["dur"] for e in ldpc)
+    print(f"dvbt2 rx bbc soft profile (1 call, {n_fr} frames): {len(acts)} "
+          f"device activities ({len(acts) / n_fr:.1f} per frame), busy "
+          f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / call_s:.3f} of the "
+          f"unprofiled call's {call_s:.4f} s; ldpc_minsum {len(ldpc)} "
+          f"activities, {ldpc_us / 1e3:.3f} ms = {ldpc_us / total_us:.3f} of "
+          f"device time; on {card}; top ops by self CUDA time:")
+    for self_us, count, key in rows[:10]:
+        print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total_us:5.1f} % "
+              f"{count:6d} calls  {key[:60]}")
 
 
 def _serve(dev, fn, init_state, block_bytes: int,
@@ -1330,9 +1620,10 @@ def main() -> int:
     check_dvbt2_papr(dev, dvbt2_golden)
     check_dvbt2_cli(dvbt2_golden, dvbt2_iq, "cuda")
 
-    # 7. the DVB-T and J.83B receivers: loop-back of the IQ above, clean and
-    # through AWGN, the card against the port's CPU stage by stage, the
-    # CLIs, receive throughput and a profile of one DVB-T call
+    # 7. the receivers: loop-back of the IQ above, clean and through AWGN,
+    # the card against the port's CPU stage by stage, the CLIs, receive
+    # throughput and profiles: DVB-T and J.83B, a long DVB-T call under a
+    # memory cap, then DVB-T2 (hard and soft, BBC and blade)
     t_rx = time.perf_counter()
     dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
     j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
@@ -1341,7 +1632,13 @@ def main() -> int:
     _rx_cli("qam-rx", iq, j83b_rx.ts, "cuda")
     call_s = time_rx(dev, card, dvbt_golden, dvbt_iq, iq)
     profile_dvbt_rx(dev, card, dvbt_iq, call_s)
-    del dvbt_rx, j83b_rx, dvbt_noisy, j83b_noisy
+    check_dvbt_rx_capped(dev, card, dvbt_golden)
+    dvbt2_rx, dvbt2_noisy = check_dvbt2_rx(dev, dvbt2_golden, dvbt2_iq)
+    check_dvbt2_stages(dev, dvbt2_iq, dvbt2_noisy)
+    _rx_cli("dvbt2-rx", dvbt2_iq, dvbt2_rx.ts, "cuda", ["--profile", "bbc"])
+    t2_s = time_dvbt2_rx(dev, card, dvbt2_iq)
+    profile_dvbt2_rx(dev, card, dvbt2_iq, t2_s["soft"])
+    del dvbt_rx, j83b_rx, dvbt_noisy, j83b_noisy, dvbt2_rx, dvbt2_noisy
     torch.cuda.empty_cache()        # the serving timings start as before
     print(f"receiver phase: {time.perf_counter() - t_rx:.1f} s")
 

@@ -30,6 +30,11 @@ def cmd_dvbt_rx(argv: list[str]) -> int:
     return dvbt_rx.cli(argv)
 
 
+def cmd_dvbt2_rx(argv: list[str]) -> int:
+    from dtv_utils_torch.models import rx_cli
+    return rx_cli.dvbt2_rx_cli(argv)
+
+
 def cmd_qam_rx(argv: list[str]) -> int:
     from dtv_utils_torch.models import rx_cli
     return rx_cli.qam_rx_cli(argv)
@@ -47,6 +52,7 @@ COMMANDS = {
     "qam-mod": cmd_qam_mod,
     "dvbt2-mod": cmd_dvbt2_mod,
     "dvbt-rx": cmd_dvbt_rx,
+    "dvbt2-rx": cmd_dvbt2_rx,
     "qam-rx": cmd_qam_rx,
 }
 

@@ -9,6 +9,8 @@ core is kept, so each block decodes as a whole-stream Viterbi would once
 the survivors have merged (``seam_overlap``).  Blocks are independent, so a
 longer stream only widens the batch: the number of trellis steps, and so
 the number of launches, is ``block + 2·overlap`` whatever the length.
+The blocks run in passes sized to the device's working memory (one pass
+while they fit), so a stream of any length decodes in bounded memory.
 
 On the device that is a Python loop over the steps on metrics ``[B, S]``
 (float32): per step one gather of the step's branch metrics, one add, one
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from dtv_utils_torch.ops.convcode import PUNCTURE_PATTERNS
+from dtv_utils_torch.utils.device import working_bytes
 
 # DVB-T mother code (EN 300 744 §4.3.3)
 DVBT_K, DVBT_G1, DVBT_G2 = 7, 0o171, 0o133
@@ -182,17 +185,65 @@ def _traceback(decs: torch.Tensor, final: torch.Tensor,
     return (states[1:, :, 0] >> (k - 2)).to(torch.uint8)
 
 
+def _bytes_per_block(steps: int, n_states: int) -> int:
+    """Device bytes one block of ``steps`` trellis steps may hold at once
+    in a pass: the bool decisions, the pass's padded pairs and their
+    copies, the four branch metrics, the traceback states and bits (an
+    upper estimate)."""
+    return steps * (n_states + 96)
+
+
+def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
+            g1: int, g2: int, max_blocks: int | None,
+            device: torch.device) -> torch.Tensor:
+    """Blocked Viterbi over ``n_str`` streams of n steps, in passes of at
+    most ``max_blocks`` blocks (all streams' blocks side by side; default:
+    as many as ``working_bytes`` of the device holds).  ``window(lo, hi)``
+    gives the float32 (x, y) pairs [n_str, hi − lo, 2] of stream positions
+    [lo, hi).  Blocks are independent, so the passes decode exactly as one
+    pass would.  Returns bits uint8 [n_str, n]."""
+    block = min(block, n)
+    nb = -(-n // block)
+    L = block + 2 * overlap
+    if max_blocks is None:
+        max_blocks = working_bytes(device) // _bytes_per_block(L, 1 << (k - 1))
+    per_pass = max(1, max_blocks // n_str)
+    core = torch.empty((n_str, nb, block), dtype=torch.uint8, device=device)
+    for b0 in range(0, nb, per_pass):
+        b1 = min(b0 + per_pass, nb)
+        # block b covers stream positions [b·block − overlap,
+        # (b+1)·block + overlap)
+        lo, hi = b0 * block - overlap, b1 * block + overlap
+        x = window(max(lo, 0), min(hi, n))
+        # Head pad: strong zero-bit evidence (the encoder starts in state 0
+        # and pre-stream steps emit X=Y=0).  Tail pad: erasures (the final
+        # state is the last K-1 data bits, which no tail evidence may
+        # contradict).
+        ext = F.pad(x, (0, 0, max(-lo, 0), 0), value=4.0)
+        ext = F.pad(ext, (0, 0, 0, max(hi - n, 0)))
+        blocks = ext.unfold(1, L, block)                 # [str, nbp, 2, L]
+        pairs = blocks.permute(3, 0, 1, 2).reshape(L, -1, 2)
+        decs, final = _acs(pairs, k, g1, g2)
+        bits = _traceback(decs, final, k)                # [L, str*nbp]
+        core[:, b0:b1] = bits[overlap:overlap + block].T.reshape(
+            n_str, b1 - b0, block)
+    return core.view(n_str, nb * block)[:, :n]
+
+
 def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
                    overlap: int = OVERLAP, k: int = DVBT_K,
-                   g1: int = DVBT_G1, g2: int = DVBT_G2) -> torch.Tensor:
+                   g1: int = DVBT_G1, g2: int = DVBT_G2,
+                   max_blocks: int | None = None) -> torch.Tensor:
     """Decode (x, y) LLR pairs [..., n, 2] → input bits uint8 [..., n], on
     the device of the input.
 
     Leading dimensions are independent streams of equal length, decoded
-    in one ACS pass (their blocks side by side); each decodes exactly as
-    it would alone.  Every stream is assumed to start from the all-zero
-    encoder state.  Punctured callers must pass ``overlap=seam_overlap(k,
-    num, den)`` (viterbi_decode_punctured does).
+    side by side in each ACS pass; each decodes exactly as it would alone.
+    Every stream is assumed to start from the all-zero encoder state.
+    Punctured callers must pass ``overlap=seam_overlap(k, num, den)``
+    (viterbi_decode_punctured does).  ``max_blocks`` caps the blocks of one
+    pass (default: what the device's working memory holds); the bits do
+    not depend on it.
     """
     *lead, n, two = llr_pairs.shape
     if two != 2:
@@ -201,28 +252,36 @@ def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
     if n == 0:
         return torch.zeros((*lead, 0), dtype=torch.uint8,
                            device=llr_pairs.device)
-    block = min(block, n)
-    nb = -(-n // block)
-    L = block + 2 * overlap
     x = llr_pairs.reshape(-1, n, 2).to(torch.float32)
-    n_str = x.shape[0]
-    # Head pad: strong zero-bit evidence (the encoder starts in state 0 and
-    # pre-stream steps emit X=Y=0).  Tail pad: erasures (the final state is
-    # the last K-1 data bits, which no tail evidence may contradict).
-    ext = F.pad(x, (0, 0, overlap, 0), value=4.0)
-    ext = F.pad(ext, (0, 0, 0, nb * block - n + overlap))
-    # block b covers stream positions [b·block − overlap, (b+1)·block + overlap)
-    blocks = ext.unfold(1, L, block)                         # [str, nb, 2, L]
-    pairs = blocks.permute(3, 0, 1, 2).reshape(L, n_str * nb, 2)
-    decs, final = _acs(pairs, k, g1, g2)
-    bits = _traceback(decs, final, k)                        # [L, str*nb]
-    core = bits[overlap:overlap + block].T.reshape(n_str, nb * block)
-    return core[:, :n].reshape(*lead, n)
+    bits = _decode(lambda lo, hi: x[:, lo:hi], x.shape[0], n, block, overlap,
+                   k, g1, g2, max_blocks, x.device)
+    return bits.reshape(*lead, n)
 
 
 def viterbi_decode_punctured(llr: torch.Tensor, code_rate: tuple[int, int],
-                             block: int = 4096) -> torch.Tensor:
-    """DVB-T punctured serial LLR stream [n_kept] → decoded input bits
-    uint8, with the overlap scaled to the puncture rate."""
-    return viterbi_decode(depuncture(llr, code_rate), block=block,
-                          overlap=seam_overlap(DVBT_K, *code_rate))
+                             block: int = 4096,
+                             max_blocks: int | None = None) -> torch.Tensor:
+    """DVB-T punctured serial LLR stream [..., n_kept] → decoded input bits
+    uint8, with the overlap scaled to the puncture rate.  Each pass
+    depunctures only the puncture periods its blocks read, so no
+    whole-stream copy of the pairs is made."""
+    xp, yp = PUNCTURE_PATTERNS[code_rate]
+    period, kept = len(xp), int(sum(xp) + sum(yp))
+    *lead, n_kept = llr.shape
+    if n_kept % kept:
+        raise ValueError(f"{n_kept} LLRs is not a whole number of puncture "
+                         f"periods of {kept}")
+    n = n_kept // kept * period
+    if n == 0:
+        return torch.zeros((*lead, 0), dtype=torch.uint8, device=llr.device)
+    z = llr.reshape(-1, n_kept).to(torch.float32)
+
+    def window(lo: int, hi: int) -> torch.Tensor:
+        p0, p1 = lo // period, -(-hi // period)
+        pairs = depuncture_xy(z[:, p0 * kept:p1 * kept], xp, yp)
+        return pairs[:, lo - p0 * period:hi - p0 * period]
+
+    bits = _decode(window, z.shape[0], n, block,
+                   seam_overlap(DVBT_K, *code_rate), DVBT_K, DVBT_G1,
+                   DVBT_G2, max_blocks, z.device)
+    return bits.reshape(*lead, n)

@@ -1,3 +1,3 @@
 """Receivers that invert the ``tx/`` modulators: IQ in, transport stream
-out (port of ``dtv_utils_tpu/rx``).  So far DVB-T (``rx/dvbt.py``) and
-J.83B (``rx/j83b.py``); the DVB-T2 receiver is not ported yet."""
+out (port of ``dtv_utils_tpu/rx``): DVB-T (``rx/dvbt.py``), DVB-T2
+(``rx/dvbt2.py``) and J.83B (``rx/j83b.py``)."""

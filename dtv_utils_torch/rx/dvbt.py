@@ -35,7 +35,7 @@ from dtv_utils_torch.ops.rs_decode import DVBT_RS_DEC
 from dtv_utils_torch.ops.viterbi import viterbi_decode_punctured
 from dtv_utils_torch.tx import dvbt_tables as T
 from dtv_utils_torch.tx.dvbt import OUTER_I, OUTER_M, OUTPUT_SCALE, _plan
-from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.device import resolve_device, working_bytes
 
 PKT, CODED_PKT = 188, 204
 
@@ -198,12 +198,19 @@ def detect_symbol_phase(cfg: DvbtConfig,
     return score.argmax(1)
 
 
-def decode_tps(cfg: DvbtConfig, carriers: torch.Tensor) -> dict:
-    """Differential TPS decode + BCH(67,53) syndrome check per frame: a
-    majority vote per OFDM symbol on the device, the rest on the host."""
+def _tps_votes(cfg: DvbtConfig, carriers: torch.Tensor) -> torch.Tensor:
+    """Per-symbol TPS majority vote float32 [n_sym] (±1 or 0), on the
+    device."""
     p = _device_rx_plan(cfg, carriers.device)
     r = carriers.real[:, p["tps_carriers"]] * p["tps_base"][None, :]
-    d = torch.sign(torch.sign(r).sum(1)).cpu().numpy().reshape(-1, 68)
+    return torch.sign(torch.sign(r).sum(1))
+
+
+def _tps_fields(votes: np.ndarray) -> dict:
+    """Host half of the TPS decode: differential bits per 68-symbol frame,
+    BCH(67,53) syndrome check and the fields (the reference's
+    ``decode_tps`` after its device vote)."""
+    d = votes.reshape(-1, 68)
     s = (d[:, 1:] != d[:, :-1]).astype(np.uint8)
     s = np.concatenate([np.zeros((len(d), 1), np.uint8), s], axis=1)
     out = {"frames": []}
@@ -244,24 +251,47 @@ def llrs_to_outer_bytes(cfg: DvbtConfig, cells: torch.Tensor) -> torch.Tensor:
     return bitops.bits_to_bytes(bits)
 
 
+def _joined(parts: list[torch.Tensor]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 @functools.cache
 def _forney_deinterleave_index(n_pkts: int,
                                device: torch.device) -> torch.Tensor:
-    """coded[j] = outer[j + 204·(j % 12)] (zero initial carry)."""
+    """coded[j] = outer[j + 204·(j % 12)] (zero initial carry), for the
+    first n_pkts packets; packet p's bytes start at 204·p, a multiple of
+    12, so the same index offset by 204·p serves packets p.. ."""
     j = np.arange(n_pkts * CODED_PKT, dtype=np.int64)
     return torch.from_numpy(j + CODED_PKT * (j % OUTER_I)).to(device)
+
+
+# device bytes the RS decoder holds per packet (its Chien and Forney
+# tables over the 204 positions dominate; an upper estimate)
+RS_BYTES_PER_PACKET = 128 << 10
 
 
 def decode_outer(outer: torch.Tensor):
     """Outer-interleaved bytes → (RS-corrected packets uint8 [n_pkts, 188],
     corrected byte counts int32, ok bool).  The Forney deinterleaver keeps
-    I·M·(I−1) = 2244 bytes in flight, like a hardware receiver's."""
+    I·M·(I−1) = 2244 bytes in flight, like a hardware receiver's.  The
+    packets are decoded in chunks that fit the device's working memory."""
     carry = OUTER_I * OUTER_M * (OUTER_I - 1)
     n_pkts = max((outer.shape[0] - carry) // CODED_PKT, 0)
-    coded = outer[_forney_deinterleave_index(n_pkts, outer.device)]
-    corrected, n_err, ok = DVBT_RS_DEC().decode_bytes(
-        coded.reshape(n_pkts, CODED_PKT))
-    return corrected[:, :PKT], n_err, ok
+    chunk = max(1, min(n_pkts,
+                       working_bytes(outer.device) // RS_BYTES_PER_PACKET))
+    parts = []
+    for p0 in range(0, max(n_pkts, 1), chunk):
+        m = min(chunk, n_pkts - p0)
+        idx = _forney_deinterleave_index(m, outer.device)
+        coded = outer[idx if p0 == 0 else idx + p0 * CODED_PKT]
+        corrected, n_err, ok = DVBT_RS_DEC().decode_bytes(
+            coded.reshape(m, CODED_PKT))
+        parts.append((corrected[:, :PKT], n_err, ok))
+    return tuple(_joined(list(c)) for c in zip(*parts))
+
+
+# device bytes the front end (FFT, cells, soft demap) holds per IQ sample
+FRONT_BYTES_PER_SAMPLE = 512
 
 
 def demodulate_stream(cfg: DvbtConfig, iq, *,
@@ -270,7 +300,11 @@ def demodulate_stream(cfg: DvbtConfig, iq, *,
     TS and receiver health, as host arrays.  Runs on ``device``.
 
     Decodes every complete TS packet the stream holds; the Forney
-    deinterleaver's 2244-byte tail stays in flight."""
+    deinterleaver's 2244-byte tail stays in flight.  The front end (FFT,
+    cells, LLRs) runs per group of superframes, the Viterbi and RS in
+    passes, each sized to the device's working memory: only the IQ, the
+    LLRs, the decoded bits and bytes span the whole stream, so any length
+    the host can read decodes."""
     dev = resolve_device(device)
     x = cplx.iq_to_device(iq, device=dev)
     n_spf = cfg.symbols_per_superframe * (cfg.fft_size + cfg.guard_samples)
@@ -278,21 +312,40 @@ def demodulate_stream(cfg: DvbtConfig, iq, *,
         raise ValueError(f"need whole superframes of {n_spf} samples, got "
                          f"{x.shape[0]}")
 
-    carriers = iq_to_carriers(cfg, x)
-    phases = detect_symbol_phase(cfg, carriers)
-    outer = llrs_to_outer_bytes(cfg, _extract_cells(cfg, carriers))
-    pkts, n_err, ok = decode_outer(outer)
+    # superframes are whole pilot-phase and TPS cycles, so each group
+    # decodes exactly as the same symbols do inside the whole stream
+    n_sf = x.shape[0] // n_spf
+    group = max(1, working_bytes(dev) // (FRONT_BYTES_PER_SAMPLE * n_spf))
+    llr, phases, votes = None, [], []
+    for a in range(0, n_sf, group):
+        b = min(a + group, n_sf)
+        carriers = iq_to_carriers(cfg, x[a * n_spf:b * n_spf])
+        phases.append(detect_symbol_phase(cfg, carriers))
+        votes.append(_tps_votes(cfg, carriers))
+        z = coded_llrs(cfg, _extract_cells(cfg, carriers))
+        if b - a == n_sf:
+            llr = z                                  # one group: no copy
+        else:
+            per_sf = z.shape[0] // (b - a)
+            if llr is None:
+                llr = z.new_empty(per_sf * n_sf)
+            llr[a * per_sf:b * per_sf] = z
+        del carriers, z
+    bits = viterbi_decode_punctured(llr, cfg.code_rate.value)
+    del llr
+    pkts, n_err, ok = decode_outer(bitops.bits_to_bytes(bits))
+    del bits
 
     # energy de-dispersal (XOR is involutive; phase = packet index mod 8)
     rows = _device_rx_plan(cfg, dev)["dispersal"]
     ts = pkts ^ rows[torch.arange(pkts.shape[0], device=dev) % 8]
 
-    phase_np = phases.cpu().numpy()
+    phase_np = _joined(phases).cpu().numpy()
     return DvbtRxResult(
         ts=ts.reshape(-1).cpu().numpy(),
         rs_errors=n_err.cpu().numpy(),
         rs_ok=ok.cpu().numpy(),
         phase_ok=bool(np.array_equal(phase_np,
                                      np.arange(len(phase_np)) % 4)),
-        tps=decode_tps(cfg, carriers),
+        tps=_tps_fields(_joined(votes).cpu().numpy()),
     )

@@ -30,3 +30,23 @@ def resolve_device(device: str | torch.device) -> torch.device:
         raise ValueError(
             f"unsupported device {str(device)!r}: use 'cpu' or 'cuda[:N]'")
     return dev
+
+
+CPU_WORKING_BYTES = 1 << 30
+
+
+def working_bytes(device: torch.device) -> int:
+    """Bytes a call may spend on temporaries that it can cut into passes.
+
+    On the card: half of what the caching allocator can still hand out,
+    the smaller of the card's free memory plus the allocator's cached
+    blocks and the ``set_per_process_memory_fraction`` cap less what is
+    reserved (``mem_get_info`` ignores that cap).  On the CPU a fixed
+    ``CPU_WORKING_BYTES``."""
+    if device.type != "cuda":
+        return CPU_WORKING_BYTES
+    free, total = torch.cuda.mem_get_info(device)
+    reserved = torch.cuda.memory_reserved(device)
+    cached = reserved - torch.cuda.memory_allocated(device)
+    cap = int(torch.cuda.get_per_process_memory_fraction(device) * total)
+    return max(min(free + cached, cap - reserved), 0) // 2

@@ -268,7 +268,7 @@ def test_cli_refuses_cuda_without_gpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [([], 255), (["--help"], 0),
-                                     (["dvbt2-rx"], 255)])
+                                     (["profile"], 255)])
 def test_cli_dispatch(argv, rc):
     from dtv_utils_torch.cli.main import main
 

@@ -10,6 +10,8 @@ for array.  The card is held to the port's CPU in
 ``tests/test_torch_rx_gpu.py``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,11 +21,14 @@ from dtv_utils_tpu.core import galois as jgalois
 from dtv_utils_tpu.ops import rs as jrs
 from dtv_utils_tpu.ops import rs_decode as JR
 from dtv_utils_tpu.ops import viterbi as JV
+from dtv_utils_torch.core import config as tdvbt
 from dtv_utils_torch.core import galois as tgalois
 from dtv_utils_torch.ops import convcode as tconv
 from dtv_utils_torch.ops import rs as trs
 from dtv_utils_torch.ops import rs_decode as TR
 from dtv_utils_torch.ops import viterbi as TV
+from dtv_utils_torch.rx import dvbt as trx
+from dtv_utils_torch.tx import dvbt as ttx
 
 ALL_RATES = [(1, 2), (2, 3), (3, 4), (5, 6), (7, 8)]
 CODES = {"dvbt": (TV.DVBT_K, TV.DVBT_G1, TV.DVBT_G2),
@@ -182,6 +187,49 @@ def test_viterbi_streams_batched_equal_alone():
         np.testing.assert_array_equal(
             both[s], TV.viterbi_decode(torch.from_numpy(pairs[s]),
                                        **kw).numpy())
+
+
+@functools.cache
+def _front_llrs(mode: str) -> torch.Tensor:
+    """Coded LLRs of one 64-QAM 7/8 GI 1/32 superframe (2K or 8K) out of
+    the port's own modulator and front end at 20 dB, cut to 9 blocks of
+    512 trellis steps."""
+    cfg = tdvbt.DvbtConfig(mode=tdvbt.TransmissionMode[mode], bandwidth_mhz=8,
+                           constellation=tdvbt.Constellation.QAM64,
+                           code_rate=tdvbt.CodeRate.R7_8,
+                           guard=tdvbt.GuardInterval.G1_32)
+    rng = np.random.default_rng(10)
+    ts = rng.integers(0, 256, cfg.ts_bytes_per_superframe).astype(np.uint8)
+    iq, _ = ttx.modulate_stream(cfg, ts, device="cpu")
+    p = np.mean(np.abs(iq) ** 2) / 10 ** 2.0
+    iq = iq + (rng.normal(0, np.sqrt(p / 2), len(iq)) + 1j * rng.normal(
+        0, np.sqrt(p / 2), len(iq))).astype(np.complex64)
+    carriers = trx.iq_to_carriers(cfg, torch.from_numpy(iq))
+    z = trx.coded_llrs(cfg, trx._extract_cells(cfg, carriers))
+    return z[:9 * 512 // 7 * 8]
+
+
+@pytest.mark.parametrize("mode", ["M2K", "M8K"])
+def test_viterbi_passes_equal_one_pass(mode):
+    """Blocks split into passes of 1, 3 and 7 decode the bits of one pass,
+    on the receiver's own LLRs of a 2K and an 8K superframe."""
+    llr = _front_llrs(mode)
+    one = TV.viterbi_decode_punctured(llr, (7, 8), block=512, max_blocks=9)
+    for m in (1, 3, 7):
+        np.testing.assert_array_equal(
+            TV.viterbi_decode_punctured(llr, (7, 8), block=512,
+                                        max_blocks=m).numpy(), one.numpy())
+
+
+def test_viterbi_streams_in_passes_equal_one_pass():
+    """Two streams side by side, three blocks of each per pass, decode the
+    bits of one pass."""
+    kw = dict(block=256, k=TV.J83B_K, g1=TV.J83B_G1, g2=TV.J83B_G2)
+    pairs = torch.from_numpy(np.stack([_k5_pairs(3001, 0.8, seed=s)[1]
+                                       for s in (7, 8)]))
+    np.testing.assert_array_equal(
+        TV.viterbi_decode(pairs, max_blocks=6, **kw).numpy(),
+        TV.viterbi_decode(pairs, **kw).numpy())
 
 
 def test_viterbi_tied_start_takes_first_state():

@@ -34,6 +34,7 @@ from dtv_utils_torch.cli import main as tmain
 from dtv_utils_torch.core import config as TC
 from dtv_utils_torch.models import dvbt_rx as tcli
 from dtv_utils_torch.rx import dvbt as TRX
+from dtv_utils_torch.utils import device as tdevice
 
 REL_TOL = 1e-4          # carriers / cells: max|Δ|/rms
 LLR_TOL = 1e-4          # LLRs: max|Δ| / max|LLR|
@@ -175,6 +176,23 @@ def test_ts_and_rs_flags(name):
         assert port.rs_errors.sum() == 0
     if np.array_equal(r["t_outer"], r["j_outer"]):
         np.testing.assert_array_equal(port.rs_errors, ref.rs_errors)
+
+
+def test_grouped_front_end_and_passes_equal_one_call(monkeypatch):
+    """With 256 MiB of working memory the receiver runs its front end one
+    superframe at a time, the Viterbi in three passes and RS in two
+    chunks: the TS and every flag equal the one-group call's."""
+    want = _run("qam64_78_20dB")["port"]
+    cfg = _cfg(TC, *CASES["qam64_78_20dB"][:-1])
+    monkeypatch.setattr(tdevice, "CPU_WORKING_BYTES", 256 << 20)
+    n_spf = cfg.symbols_per_superframe * (cfg.fft_size + cfg.guard_samples)
+    assert tdevice.working_bytes(torch.device("cpu")) < \
+        TRX.FRONT_BYTES_PER_SAMPLE * n_spf
+    got = TRX.demodulate_stream(cfg, _iq("qam64_78_20dB")[1], device="cpu")
+    np.testing.assert_array_equal(got.ts, want.ts)
+    np.testing.assert_array_equal(got.rs_errors, want.rs_errors)
+    np.testing.assert_array_equal(got.rs_ok, want.rs_ok)
+    assert got.phase_ok and got.tps == want.tps
 
 
 def test_tensor_input_equals_numpy():

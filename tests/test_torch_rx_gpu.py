@@ -3,11 +3,13 @@ run on the same inputs.  Every test here needs a CUDA device and skips
 without one.  The module imports no JAX (the GPU machine has none): on that
 machine run ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_rx_gpu.py -m gpu``.  The JAX comparisons are in
-``tests/test_torch_rx_{decoders,dvbt,j83b}.py``.
+``tests/test_torch_rx_{decoders,dvbt,dvbt2,j83b}.py`` and
+``tests/test_torch_ldpc.py``.
 
-The Viterbi and RS decoders do exact arithmetic, so their outputs must be
-equal; the receivers' FFT and matched filter round differently on the card,
-so there the TS and every flag must be equal, and the input TS recovered.
+The Viterbi, RS and min-sum LDPC decoders do exact or fixed-order
+arithmetic, so their outputs must be equal; the receivers' FFT and matched
+filter round differently on the card, so there the TS and every flag must
+be equal, and the input TS recovered.
 """
 
 import numpy as np
@@ -15,15 +17,18 @@ import pytest
 import torch
 
 from dtv_utils_torch.core.config import (CodeRate, Constellation, DvbtConfig,
-                                         GuardInterval, J83bConfig,
-                                         TransmissionMode)
+                                         Dvbt2Config, GuardInterval,
+                                         J83bConfig, TransmissionMode)
 from dtv_utils_torch.core.galois import GF128
 from dtv_utils_torch.ops import convcode
+from dtv_utils_torch.ops import ldpc_decode as LD
 from dtv_utils_torch.ops import rs_decode as TR
 from dtv_utils_torch.ops import viterbi as TV
 from dtv_utils_torch.rx import dvbt as RXD
+from dtv_utils_torch.rx import dvbt2 as RX2
 from dtv_utils_torch.rx import j83b as RXQ
 from dtv_utils_torch.tx import dvbt as TXD
+from dtv_utils_torch.tx import dvbt2 as TX2
 from dtv_utils_torch.tx import j83b as TXQ
 
 
@@ -122,3 +127,74 @@ def test_j83b_rx_cuda_equals_cpu(snr):
     assert got.fsync_ok == want.fsync_ok and got.control_word == 6
     for f in ("rs_ok", "rs_errors", "ext_ok", "checksum_ok"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+T2_CFG = Dvbt2Config(fec_blocks=3, ti_blocks=2)
+
+
+def _t2_iq(snr_db):
+    ts = _seeded_ts(T2_CFG.payload_bytes_per_frame, 6)
+    iq, _ = TX2.modulate_stream(T2_CFG, ts, device="cpu")
+    return ts, (iq if snr_db is None else _awgn(iq, snr_db, 7))
+
+
+@pytest.mark.gpu
+def test_ldpc_cuda_equals_cpu():
+    """Hard bits and ok of a channel the decoder corrects and of one it
+    cannot (10 iterations on noise), and the syndrome, bit for bit."""
+    _need_cuda()
+    rng = np.random.default_rng(2)
+    bb = torch.from_numpy(rng.integers(0, 2, (3, T2_CFG.kbch)).astype(
+        np.uint8))
+    fec = TX2.fec_encode(T2_CFG, bb)
+    sigma = np.sqrt(1 / (2 * 10 ** (2.5 / 10)))
+    llr = (2 * (1.0 - 2.0 * fec.float()) / sigma ** 2
+           + torch.from_numpy(rng.normal(0, 2 / sigma, fec.shape).astype(
+               np.float32)))
+    noise = torch.from_numpy(rng.normal(0, 1, fec.shape).astype(np.float32))
+    for x, it in ((llr, 30), (noise, 10)):
+        got = LD.decode(T2_CFG, x.cuda(), iterations=it)
+        want = LD.decode(T2_CFG, x, iterations=it)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert want[0].numel() and not want[1].any()
+    flipped = fec.clone()
+    flipped[1, 777] ^= 1
+    assert torch.equal(LD.syndrome(T2_CFG, flipped.cuda()).cpu(),
+                       LD.syndrome(T2_CFG, flipped))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("snr", [None, 14.5])
+def test_dvbt2_rx_cuda_equals_cpu(snr):
+    _need_cuda()
+    ts, iq = _t2_iq(snr)
+    got = RX2.demodulate_stream(T2_CFG, iq, soft=snr is not None,
+                                device="cuda")
+    want = RX2.demodulate_stream(T2_CFG, iq, soft=snr is not None,
+                                 device="cpu")
+    np.testing.assert_array_equal(got.ts, ts[:len(got.ts)])
+    np.testing.assert_array_equal(got.ts, want.ts)
+    for f in ("ldpc_ok", "bch_ok", "bb_crc_ok"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert getattr(got, f).all()
+    assert got.l1_pre == want.l1_pre and got.l1_post == want.l1_post
+    assert (got.s1, got.s2, got.sync_crc_ok) == (want.s1, want.s2, True)
+
+
+@pytest.mark.gpu
+def test_dvbt2_decode_makes_no_host_sync():
+    _need_cuda()
+    _, iq = _t2_iq(14.5)
+    body = torch.from_numpy(iq[2048:TX2.samples_per_frame(T2_CFG)]).cuda()
+    llr = torch.randn(3, T2_CFG.nldpc, device="cuda")
+    for soft in (False, True):                      # warm: tables uploaded
+        RX2._decode_frame(T2_CFG, body, soft, 30)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        LD.decode(T2_CFG, llr)
+        for soft in (False, True):
+            RX2._decode_frame(T2_CFG, body, soft, 30)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
