@@ -22,8 +22,11 @@ against a golden made from the JAX reference:
   20.0 and 27 dB: the exact input TS and every health flag, the card
   against the port's CPU stage by stage (Viterbi, J.83B front and trellis
   decode, RS for both fields), no host sync inside the decoders, and
-  ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``; 24 DVB-T
-  superframes under a 12 GB memory cap, equal to the uncapped call;
+  ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``; one ACS pass
+  and RX_DVBT_ACTIVITIES device activities per flagship call, each
+  passed stage's peak memory per unit within its size in
+  ``utils/device.py``; 24 DVB-T superframes under a 12 GB memory cap,
+  equal to the uncapped call;
 * the DVB-T2 receiver on the BBC frames above, hard and soft (clean and
   at RX_DVBT2_SNR_DB), and on 2 blade frames soft at 14.5 dB: the exact TS
   with every flag and the signalled L1 fields, the card against the CPU
@@ -56,6 +59,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -103,6 +107,7 @@ RX_NOISE_SEED = 0x5EED                  # host default_rng for the AWGN
 RX_VITERBI_BLOCKS = 64                  # card-vs-CPU Viterbi cut, blocks
 RX_J83B_GROUPS = 50_000                 # card-vs-CPU J.83B cut, groups
 RX_SUPERFRAMES = (2, 8)                 # DVB-T receive calls timed
+RX_DVBT_ACTIVITIES = 42_734             # device activities, 2-superframe call
 RX_REPEATS = 3
 RX_CAP_BYTES = 12e9                     # set_per_process_memory_fraction cap
 RX_CAP_SUPERFRAMES = (12, 24)           # DVB-T calls decoded under the cap
@@ -984,6 +989,9 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
         peak = torch.cuda.max_memory_allocated(dev) - held
         with _counted(viterbi, "_acs") as passes:
             rxd.demodulate_stream(cfg, x, device=dev)
+        if passes[0] != 1:
+            raise AssertionError(f"dvbt rx {n_sf} superframes: {passes[0]} "
+                                 "ACS passes, not one")
         msps = [x.numel() / s / 1e6 for s in secs]
         print(f"dvbt rx, {n_sf} superframes per call ({x.numel()} samples, "
               f"{1e3 * x.numel() / float(cfg.sample_rate):.3f} ms of air): "
@@ -991,6 +999,7 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
               f"call; real time is {dvbt_msps:.6f} Msps; {passes[0]} ACS "
               f"pass(es); peak device memory {peak / 1e9:.3f} GB above what "
               f"was held before; on {card}")
+        check_pass_units(dev, card, cfg, x)
         if n_sf == dvbt_golden["superframes"]:
             sec2 = sorted(secs)[1]
     jcfg = J83bConfig()
@@ -1004,6 +1013,60 @@ def time_rx(dev, card: str, dvbt_golden: dict, dvbt_iq: np.ndarray,
     return sec2
 
 
+def _peak(dev, fn):
+    """(fn(), the device bytes allocated at the peak of its run above what
+    was held before it)."""
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, torch.cuda.max_memory_allocated(dev) - held
+
+
+def check_pass_units(dev, card: str, cfg, x: torch.Tensor) -> None:
+    """The DVB-T receiver's three stages that run in passes, each run once
+    over the whole of ``x``: the peak above its input per unit of work,
+    against the bytes per unit ``utils/device.py`` sizes the passes with.
+    Fails if a peak is larger, or if a stage took more than one pass."""
+    from dtv_utils_torch.core import bits as bitops
+    from dtv_utils_torch.ops import rs_decode, viterbi
+    from dtv_utils_torch.ops.convcode import PUNCTURE_PATTERNS
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.utils import device as udev
+
+    rate = cfg.code_rate.value
+    xp, yp = PUNCTURE_PATTERNS[rate]
+    block = inspect.signature(
+        viterbi.viterbi_decode_punctured).parameters["block"].default
+    (_, _, z), front = _peak(dev, lambda: rxd._front_end(cfg, x))
+    steps = z.numel() // (sum(xp) + sum(yp)) * len(xp)
+    block_steps = -(-steps // block) * (
+        block + 2 * viterbi.seam_overlap(viterbi.DVBT_K, *rate))
+    with _counted(viterbi, "_acs") as passes:
+        bits, vit = _peak(
+            dev, lambda: viterbi.viterbi_decode_punctured(z, rate))
+    outer = bitops.bits_to_bytes(bits)
+    del z, bits
+    with _counted(rs_decode.RsDecoder, "decode_bytes") as chunks:
+        (pkts, _, _), rs = _peak(dev, lambda: rxd.decode_outer(outer))
+    n_sf = x.numel() // cfg.samples_per_superframe
+    for stage, unit, got, bound, n_pass in (
+            ("front end", "IQ sample", front / x.numel(),
+             udev.FRONT_BYTES_PER_SAMPLE, 1),
+            ("Viterbi", "trellis step of a block", vit / block_steps,
+             udev.VITERBI_BYTES_PER_STEP, passes[0]),
+            ("RS", "TS packet", rs / pkts.shape[0], udev.RS_BYTES_PER_PACKET,
+             chunks[0])):
+        print(f"dvbt rx {n_sf} superframes, {stage} in {n_pass} pass(es): "
+              f"peak {got:.1f} bytes per {unit} above its input; passes "
+              f"sized at {bound}; on {card}")
+        if n_pass != 1 or got > bound:
+            raise AssertionError(f"dvbt rx {stage}: {got:.1f} bytes per "
+                                 f"{unit} over {n_pass} pass(es); "
+                                 f"utils/device.py sizes it at {bound}")
+
+
 def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
     """``dvbt-rx``'s memory no longer grows with its input's length: under
     a RX_CAP_BYTES ``set_per_process_memory_fraction`` cap (the unpassed
@@ -1013,9 +1076,9 @@ def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
     not follow the length; the slope per superframe (IQ included) is
     measured at 12 and 24 superframes with the working memory pinned to
     RX_SLOPE_WORKING_BYTES, so that both calls run passes of one size."""
-    from dtv_utils_torch.ops import viterbi
     from dtv_utils_torch.rx import dvbt as rxd
     from dtv_utils_torch.tx import dvbt as txd
+    from dtv_utils_torch.utils import device as udev
 
     cfg = dvbt_flagship()
     spf = cfg.samples_per_superframe
@@ -1041,9 +1104,8 @@ def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
         for n_sf, pin in ((hi, False), (lo, True), (hi, True)):
             with contextlib.ExitStack() as stack:
                 if pin:
-                    for mod in (rxd, viterbi):
-                        stack.enter_context(_patched(mod, "working_bytes",
-                                                     pinned))
+                    stack.enter_context(_patched(udev, "working_bytes",
+                                                 pinned))
                 held = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
@@ -1106,6 +1168,9 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
         rxd.demodulate_stream(cfg, x, device=dev)
         torch.cuda.synchronize()
     events, acts, busy_us, total_us, rows = _trace_summary(prof)
+    if len(acts) != RX_DVBT_ACTIVITIES:
+        raise AssertionError(f"dvbt rx: {len(acts)} device activities in "
+                             f"one call, not {RX_DVBT_ACTIVITIES}")
     busy_ms = busy_us / 1e3
     got = {}
     for name in ("viterbi_acs", "viterbi_traceback"):

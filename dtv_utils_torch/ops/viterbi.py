@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from dtv_utils_torch.ops.convcode import PUNCTURE_PATTERNS
-from dtv_utils_torch.utils.device import working_bytes
+from dtv_utils_torch.utils.device import VITERBI_BYTES_PER_STEP, units_per_pass
 
 # DVB-T mother code (EN 300 744 §4.3.3)
 DVBT_K, DVBT_G1, DVBT_G2 = 7, 0o171, 0o133
@@ -185,29 +185,20 @@ def _traceback(decs: torch.Tensor, final: torch.Tensor,
     return (states[1:, :, 0] >> (k - 2)).to(torch.uint8)
 
 
-def _bytes_per_block(steps: int, n_states: int) -> int:
-    """Device bytes one block of ``steps`` trellis steps may hold at once
-    in a pass: the bool decisions, the pass's padded pairs and their
-    copies, the four branch metrics, the traceback states and bits (an
-    upper estimate)."""
-    return steps * (n_states + 96)
-
-
 def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
-            g1: int, g2: int, max_blocks: int | None,
-            device: torch.device) -> torch.Tensor:
-    """Blocked Viterbi over ``n_str`` streams of n steps, in passes of at
-    most ``max_blocks`` blocks (all streams' blocks side by side; default:
-    as many as ``working_bytes`` of the device holds).  ``window(lo, hi)``
+            g1: int, g2: int, device: torch.device) -> torch.Tensor:
+    """Blocked Viterbi over ``n_str`` streams of n steps, in passes of as
+    many blocks as the device's working memory holds (all streams' blocks
+    side by side; ``utils.device.units_per_pass``).  ``window(lo, hi)``
     gives the float32 (x, y) pairs [n_str, hi − lo, 2] of stream positions
     [lo, hi).  Blocks are independent, so the passes decode exactly as one
     pass would.  Returns bits uint8 [n_str, n]."""
     block = min(block, n)
     nb = -(-n // block)
     L = block + 2 * overlap
-    if max_blocks is None:
-        max_blocks = working_bytes(device) // _bytes_per_block(L, 1 << (k - 1))
-    per_pass = max(1, max_blocks // n_str)
+    # VITERBI_BYTES_PER_STEP is K=7's; the narrower K=5 trellis needs less
+    per_pass = max(1, units_per_pass(device, L * VITERBI_BYTES_PER_STEP)
+                   // n_str)
     core = torch.empty((n_str, nb, block), dtype=torch.uint8, device=device)
     for b0 in range(0, nb, per_pass):
         b1 = min(b0 + per_pass, nb)
@@ -232,8 +223,7 @@ def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
 
 def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
                    overlap: int = OVERLAP, k: int = DVBT_K,
-                   g1: int = DVBT_G1, g2: int = DVBT_G2,
-                   max_blocks: int | None = None) -> torch.Tensor:
+                   g1: int = DVBT_G1, g2: int = DVBT_G2) -> torch.Tensor:
     """Decode (x, y) LLR pairs [..., n, 2] → input bits uint8 [..., n], on
     the device of the input.
 
@@ -241,9 +231,8 @@ def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
     side by side in each ACS pass; each decodes exactly as it would alone.
     Every stream is assumed to start from the all-zero encoder state.
     Punctured callers must pass ``overlap=seam_overlap(k, num, den)``
-    (viterbi_decode_punctured does).  ``max_blocks`` caps the blocks of one
-    pass (default: what the device's working memory holds); the bits do
-    not depend on it.
+    (viterbi_decode_punctured does).  The blocks run in passes sized to
+    the device's working memory; the bits do not depend on the passes.
     """
     *lead, n, two = llr_pairs.shape
     if two != 2:
@@ -254,13 +243,12 @@ def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
                            device=llr_pairs.device)
     x = llr_pairs.reshape(-1, n, 2).to(torch.float32)
     bits = _decode(lambda lo, hi: x[:, lo:hi], x.shape[0], n, block, overlap,
-                   k, g1, g2, max_blocks, x.device)
+                   k, g1, g2, x.device)
     return bits.reshape(*lead, n)
 
 
 def viterbi_decode_punctured(llr: torch.Tensor, code_rate: tuple[int, int],
-                             block: int = 4096,
-                             max_blocks: int | None = None) -> torch.Tensor:
+                             block: int = 4096) -> torch.Tensor:
     """DVB-T punctured serial LLR stream [..., n_kept] → decoded input bits
     uint8, with the overlap scaled to the puncture rate.  Each pass
     depunctures only the puncture periods its blocks read, so no
@@ -283,5 +271,5 @@ def viterbi_decode_punctured(llr: torch.Tensor, code_rate: tuple[int, int],
 
     bits = _decode(window, z.shape[0], n, block,
                    seam_overlap(DVBT_K, *code_rate), DVBT_K, DVBT_G1,
-                   DVBT_G2, max_blocks, z.device)
+                   DVBT_G2, z.device)
     return bits.reshape(*lead, n)

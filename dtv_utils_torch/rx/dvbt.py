@@ -35,7 +35,9 @@ from dtv_utils_torch.ops.rs_decode import DVBT_RS_DEC
 from dtv_utils_torch.ops.viterbi import viterbi_decode_punctured
 from dtv_utils_torch.tx import dvbt_tables as T
 from dtv_utils_torch.tx.dvbt import OUTER_I, OUTER_M, OUTPUT_SCALE, _plan
-from dtv_utils_torch.utils.device import resolve_device, working_bytes
+from dtv_utils_torch.utils.device import (FRONT_BYTES_PER_SAMPLE,
+                                          RS_BYTES_PER_PACKET,
+                                          resolve_device, units_per_pass)
 
 PKT, CODED_PKT = 188, 204
 
@@ -208,8 +210,7 @@ def _tps_votes(cfg: DvbtConfig, carriers: torch.Tensor) -> torch.Tensor:
 
 def _tps_fields(votes: np.ndarray) -> dict:
     """Host half of the TPS decode: differential bits per 68-symbol frame,
-    BCH(67,53) syndrome check and the fields (the reference's
-    ``decode_tps`` after its device vote)."""
+    BCH(67,53) syndrome check and the fields."""
     d = votes.reshape(-1, 68)
     s = (d[:, 1:] != d[:, :-1]).astype(np.uint8)
     s = np.concatenate([np.zeros((len(d), 1), np.uint8), s], axis=1)
@@ -231,6 +232,12 @@ def _tps_fields(votes: np.ndarray) -> dict:
         ))
     out["all_bch_ok"] = all(fr["bch_ok"] for fr in out["frames"])
     return out
+
+
+def decode_tps(cfg: DvbtConfig, carriers: torch.Tensor) -> dict:
+    """Differential TPS decode + BCH(67,53) syndrome check per frame: a
+    majority vote per OFDM symbol on the device, the rest on the host."""
+    return _tps_fields(_tps_votes(cfg, carriers).cpu().numpy())
 
 
 def coded_llrs(cfg: DvbtConfig, cells: torch.Tensor) -> torch.Tensor:
@@ -265,11 +272,6 @@ def _forney_deinterleave_index(n_pkts: int,
     return torch.from_numpy(j + CODED_PKT * (j % OUTER_I)).to(device)
 
 
-# device bytes the RS decoder holds per packet (its Chien and Forney
-# tables over the 204 positions dominate; an upper estimate)
-RS_BYTES_PER_PACKET = 128 << 10
-
-
 def decode_outer(outer: torch.Tensor):
     """Outer-interleaved bytes → (RS-corrected packets uint8 [n_pkts, 188],
     corrected byte counts int32, ok bool).  The Forney deinterleaver keeps
@@ -277,8 +279,8 @@ def decode_outer(outer: torch.Tensor):
     packets are decoded in chunks that fit the device's working memory."""
     carry = OUTER_I * OUTER_M * (OUTER_I - 1)
     n_pkts = max((outer.shape[0] - carry) // CODED_PKT, 0)
-    chunk = max(1, min(n_pkts,
-                       working_bytes(outer.device) // RS_BYTES_PER_PACKET))
+    chunk = max(1, min(n_pkts, units_per_pass(outer.device,
+                                              RS_BYTES_PER_PACKET)))
     parts = []
     for p0 in range(0, max(n_pkts, 1), chunk):
         m = min(chunk, n_pkts - p0)
@@ -290,8 +292,13 @@ def decode_outer(outer: torch.Tensor):
     return tuple(_joined(list(c)) for c in zip(*parts))
 
 
-# device bytes the front end (FFT, cells, soft demap) holds per IQ sample
-FRONT_BYTES_PER_SAMPLE = 512
+def _front_end(cfg: DvbtConfig, iq: torch.Tensor):
+    """Whole superframes of IQ → (pilot phases int64 [n_sym], TPS votes
+    float32 [n_sym], coded LLRs float32 [n_kept]): FFT, phase and TPS
+    vote, de-interleave and soft demap."""
+    carriers = iq_to_carriers(cfg, iq)
+    return (detect_symbol_phase(cfg, carriers), _tps_votes(cfg, carriers),
+            coded_llrs(cfg, _extract_cells(cfg, carriers)))
 
 
 def demodulate_stream(cfg: DvbtConfig, iq, *,
@@ -315,14 +322,13 @@ def demodulate_stream(cfg: DvbtConfig, iq, *,
     # superframes are whole pilot-phase and TPS cycles, so each group
     # decodes exactly as the same symbols do inside the whole stream
     n_sf = x.shape[0] // n_spf
-    group = max(1, working_bytes(dev) // (FRONT_BYTES_PER_SAMPLE * n_spf))
+    group = units_per_pass(dev, FRONT_BYTES_PER_SAMPLE * n_spf)
     llr, phases, votes = None, [], []
     for a in range(0, n_sf, group):
         b = min(a + group, n_sf)
-        carriers = iq_to_carriers(cfg, x[a * n_spf:b * n_spf])
-        phases.append(detect_symbol_phase(cfg, carriers))
-        votes.append(_tps_votes(cfg, carriers))
-        z = coded_llrs(cfg, _extract_cells(cfg, carriers))
+        ph, vote, z = _front_end(cfg, x[a * n_spf:b * n_spf])
+        phases.append(ph)
+        votes.append(vote)
         if b - a == n_sf:
             llr = z                                  # one group: no copy
         else:
@@ -330,7 +336,7 @@ def demodulate_stream(cfg: DvbtConfig, iq, *,
             if llr is None:
                 llr = z.new_empty(per_sf * n_sf)
             llr[a * per_sf:b * per_sf] = z
-        del carriers, z
+        del z
     bits = viterbi_decode_punctured(llr, cfg.code_rate.value)
     del llr
     pkts, n_err, ok = decode_outer(bitops.bits_to_bytes(bits))

@@ -32,7 +32,17 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+# The memory policy of the stages that run in passes: a pass takes as many
+# units of work as ``working_bytes`` holds at the stage's bytes per unit.
+# Each size is the device peak per unit (temporaries and output above the
+# stage's input) that ``chip_smoke.check_pass_units`` reads at the DVB-T
+# flagship's 2 and 8 superframes per call, with about a quarter added for
+# other configs; that check fails if a peak outgrows its size.  Measured
+# on an NVIDIA H100 80GB HBM3 (700 W): 118.4, 103.6 and 56,804 bytes.
 CPU_WORKING_BYTES = 1 << 30
+FRONT_BYTES_PER_SAMPLE = 160       # rx.dvbt front end, per IQ sample
+VITERBI_BYTES_PER_STEP = 128       # ops.viterbi, per trellis step of a block
+RS_BYTES_PER_PACKET = 72 << 10     # rx.dvbt.decode_outer, per TS packet
 
 
 def working_bytes(device: torch.device) -> int:
@@ -50,3 +60,8 @@ def working_bytes(device: torch.device) -> int:
     cached = reserved - torch.cuda.memory_allocated(device)
     cap = int(torch.cuda.get_per_process_memory_fraction(device) * total)
     return max(min(free + cached, cap - reserved), 0) // 2
+
+
+def units_per_pass(device: torch.device, unit_bytes: int) -> int:
+    """Units of ``unit_bytes`` each that one pass may hold (at least 1)."""
+    return max(1, working_bytes(device) // unit_bytes)

@@ -209,27 +209,45 @@ def _front_llrs(mode: str) -> torch.Tensor:
     return z[:9 * 512 // 7 * 8]
 
 
+def _in_passes(monkeypatch, blocks):
+    """Make every Viterbi pass hold ``blocks`` blocks (all streams'
+    together) and count the passes (the ACS runs once per pass)."""
+    monkeypatch.setattr(TV, "units_per_pass", lambda device, unit: blocks)
+    acs, passes = TV._acs, [0]
+
+    def counted(*args):
+        passes[0] += 1
+        return acs(*args)
+
+    monkeypatch.setattr(TV, "_acs", counted)
+    return passes
+
+
 @pytest.mark.parametrize("mode", ["M2K", "M8K"])
-def test_viterbi_passes_equal_one_pass(mode):
+def test_viterbi_passes_equal_one_pass(mode, monkeypatch):
     """Blocks split into passes of 1, 3 and 7 decode the bits of one pass,
     on the receiver's own LLRs of a 2K and an 8K superframe."""
     llr = _front_llrs(mode)
-    one = TV.viterbi_decode_punctured(llr, (7, 8), block=512, max_blocks=9)
+    one = TV.viterbi_decode_punctured(llr, (7, 8), block=512)
     for m in (1, 3, 7):
+        passes = _in_passes(monkeypatch, m)
         np.testing.assert_array_equal(
-            TV.viterbi_decode_punctured(llr, (7, 8), block=512,
-                                        max_blocks=m).numpy(), one.numpy())
+            TV.viterbi_decode_punctured(llr, (7, 8), block=512).numpy(),
+            one.numpy())
+        assert passes[0] == -(-9 // m)
 
 
-def test_viterbi_streams_in_passes_equal_one_pass():
+def test_viterbi_streams_in_passes_equal_one_pass(monkeypatch):
     """Two streams side by side, three blocks of each per pass, decode the
     bits of one pass."""
     kw = dict(block=256, k=TV.J83B_K, g1=TV.J83B_G1, g2=TV.J83B_G2)
     pairs = torch.from_numpy(np.stack([_k5_pairs(3001, 0.8, seed=s)[1]
                                        for s in (7, 8)]))
-    np.testing.assert_array_equal(
-        TV.viterbi_decode(pairs, max_blocks=6, **kw).numpy(),
-        TV.viterbi_decode(pairs, **kw).numpy())
+    one = TV.viterbi_decode(pairs, **kw).numpy()
+    passes = _in_passes(monkeypatch, 6)
+    np.testing.assert_array_equal(TV.viterbi_decode(pairs, **kw).numpy(),
+                                  one)
+    assert passes[0] == 4                    # 12 blocks of a stream, 3 a pass
 
 
 def test_viterbi_tied_start_takes_first_state():

@@ -33,6 +33,8 @@ from dtv_utils_tpu.tx import dvbt as JTX
 from dtv_utils_torch.cli import main as tmain
 from dtv_utils_torch.core import config as TC
 from dtv_utils_torch.models import dvbt_rx as tcli
+from dtv_utils_torch.ops import rs_decode as TRS
+from dtv_utils_torch.ops import viterbi as TV
 from dtv_utils_torch.rx import dvbt as TRX
 from dtv_utils_torch.utils import device as tdevice
 
@@ -178,21 +180,44 @@ def test_ts_and_rs_flags(name):
         np.testing.assert_array_equal(port.rs_errors, ref.rs_errors)
 
 
+def _counted(monkeypatch, owner, name):
+    fn, n = getattr(owner, name), [0]
+
+    def counting(*args, **kwargs):
+        n[0] += 1
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(owner, name, counting)
+    return n
+
+
 def test_grouped_front_end_and_passes_equal_one_call(monkeypatch):
-    """With 256 MiB of working memory the receiver runs its front end one
-    superframe at a time, the Viterbi in three passes and RS in two
+    """With 64 MiB of working memory the receiver runs its front end one
+    superframe at a time, the Viterbi in several passes and RS in several
     chunks: the TS and every flag equal the one-group call's."""
     want = _run("qam64_78_20dB")["port"]
     cfg = _cfg(TC, *CASES["qam64_78_20dB"][:-1])
-    monkeypatch.setattr(tdevice, "CPU_WORKING_BYTES", 256 << 20)
-    n_spf = cfg.symbols_per_superframe * (cfg.fft_size + cfg.guard_samples)
-    assert tdevice.working_bytes(torch.device("cpu")) < \
-        TRX.FRONT_BYTES_PER_SAMPLE * n_spf
+    monkeypatch.setattr(tdevice, "CPU_WORKING_BYTES", 64 << 20)
+    groups = _counted(monkeypatch, TRX, "_front_end")
+    passes = _counted(monkeypatch, TV, "_acs")
+    chunks = _counted(monkeypatch, TRS.RsDecoder, "decode_bytes")
     got = TRX.demodulate_stream(cfg, _iq("qam64_78_20dB")[1], device="cpu")
+    assert (groups[0], passes[0] >= 2, chunks[0] >= 2) == (2, True, True)
     np.testing.assert_array_equal(got.ts, want.ts)
     np.testing.assert_array_equal(got.rs_errors, want.rs_errors)
     np.testing.assert_array_equal(got.rs_ok, want.rs_ok)
     assert got.phase_ok and got.tps == want.tps
+
+
+@pytest.mark.parametrize("name", ["qpsk12_2.5dB", "qam64_78_clean"])
+def test_decode_tps_equals_jax(name):
+    """The public TPS decode on each package's own carriers."""
+    r = _run(name)
+    key = CASES[name][:-1]
+    got = TRX.decode_tps(_cfg(TC, *key), torch.from_numpy(r["t_carriers"]))
+    assert got == JRX.decode_tps(_cfg(JC, *key),
+                                 jnp.asarray(r["j_carriers"]))
+    assert got["all_bch_ok"]
 
 
 def test_tensor_input_equals_numpy():
