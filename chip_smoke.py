@@ -31,7 +31,15 @@ against a golden made from the JAX reference:
   at RX_DVBT2_SNR_DB), and on 2 blade frames soft at 14.5 dB: the exact TS
   with every flag and the signalled L1 fields, the card against the CPU
   (hard words, the min-sum decoder, the syndrome), no host sync in the
-  decoder or the frame decode, and ``dvbt2-rx``.
+  decoder or the frame decode, and ``dvbt2-rx``;
+* batched streaming (``parallel/stream.py``): DVB-T flagship calls of 4
+  and 8 superframes, DVB-T2 BBC and J.83B calls of 4 frames / superblocks
+  (bench.py's DVB-T2 launch), each from block 0 and as a continuation,
+  equal to the serial one-block chain bit for bit with no host sync, one
+  FIR launch per J.83B call, and fewer than twice a one-block call's
+  device activities; the sharded modulators at world size 1 in an NCCL
+  process group equal to the batched ones; ``entry()`` and
+  ``dryrun_multichip(1)``.
 
 The FIR kernel is checked at the main path's size and at edge sizes, on
 rows at every 4-byte alignment and in chained calls, and timed cold (L2
@@ -41,10 +49,11 @@ the receivers (DVB-T at 2 and 8 superframes per call, J.83B at 2
 superblocks, DVB-T2 BBC at 2 frames hard and soft) and profiles one DVB-T
 and one soft DVB-T2 receive call, times the serving shapes
 of ``bench.py`` (J.83B, DVB-T, DVB-T2, PAPR) and profiles the J.83B, DVB-T
-and DVB-T2 chains.  Every check raises on failure, so the
-exit code is non-zero if any phase fails.  The last two lines of stdout are
-the kernels' JSON record and ``{"ok": true, "device": {...}}``.  It never
-imports JAX.
+and DVB-T2 chains, and times batched serving (one stream, L blocks per
+call) with each call's device time, activities and peak memory.  Every
+check raises on failure, so the exit code is non-zero if any phase fails.
+The last two lines of stdout are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  It never imports JAX.
 
 ``python3 chip_smoke.py --j83b-ab TREE`` only profiles J.83B, with the
 package of TREE (another tree of this repository, e.g. the parent commit
@@ -55,6 +64,7 @@ device time per superblock that this tree saves.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -116,6 +126,14 @@ RX_DVBT2_SNR_DB = 23.0                  # BBC 256-QAM 2/3 soft: 2 dB of margin
 RX_BLADE_SNR_DB = 14.5                  # the reference's 64-QAM 2/3 point
 RX_LDPC_BLOCKS = 8                      # card-vs-CPU LDPC cut, FEC blocks
 HOST_PROBE_LAUNCHES = 20_000            # tiny launches per host probe
+BATCH_DVBT = (4, 8)                     # superframes per batched DVB-T call
+BATCH_L = 4                             # T2 frames / superblocks per call
+#                                         (bench.py's DVB-T2 launch)
+BATCH_ROUNDS = 8                        # timed batched calls per repeat
+BATCH_PROFILED = 3                      # profiled batched calls
+PROFILE_PAD_CYCLES = 40_000_000         # ~20 ms spin at each profile edge
+BATCH_SEED = 0xBA7
+BATCH_MAX_GROWTH = 2.0                  # L=4 call's activities < 2x L=1's
 
 
 def seeded_ts(seed: int, n_bytes: int) -> np.ndarray:
@@ -225,8 +243,9 @@ def _misaligned_rows(g, dev, n: int, off: int) -> torch.Tensor:
 
 def check_fir(dev, taps) -> float:
     """Kernel against the plain version on the card; returns max |Δ|.
-    Sizes: the main path's, a ragged tile, one cell, history-only windows
-    (n <= 49), tile edges and an odd n (output row 1 only 8-byte aligned);
+    Sizes: the main path's, a ragged tile, one cell, a batched J.83B call's
+    (BATCH_L superblocks in one launch), history-only windows (n <= 49),
+    tile edges and an odd n (output row 1 only 8-byte aligned);
     the split entry on rows that start 1, 2 or 3 floats past a 16-byte
     boundary; chained calls with the 49-sample history carried."""
     from dtv_utils_torch.ops import fir
@@ -234,7 +253,7 @@ def check_fir(dev, taps) -> float:
 
     g = torch.Generator(device=dev).manual_seed(83)
     worst = 0.0
-    for n in FIR_SIZES + FIR_EDGE_SIZES:
+    for n in FIR_SIZES + (BATCH_L * FIR_SIZES[0],) + FIR_EDGE_SIZES:
         x = torch.randn(2, fir.HIST + n, generator=g, device=dev)
         worst = max(worst, _fir_case(
             f"n={n}", fir.polyphase_interp2(x, taps, n),
@@ -1582,6 +1601,251 @@ def profile_dvbt2(dev) -> tuple[float, float]:
         cfg.payload_bytes_per_frame, "frame")
 
 
+Batched = collections.namedtuple(
+    "Batched", "label L block_bytes samples call pos0 serial state0")
+Batched.__doc__ = """One chain's batched call: ``call(x [L, block_bytes],
+pos)`` → (IQ of the L blocks, the stream position after them); ``pos0`` is
+the position at a stream's block 0; ``serial(block, state)`` → (IQ, state)
+is the one-block chain from ``state0()``; ``samples`` are complex samples
+per block."""
+
+
+def batched_dvbt(dev, L: int) -> Batched:
+    """The DVB-T flagship through ``batched_dvbt_modulator``: a stream's
+    position is (the previous superframe's 12-packet tail, its index)."""
+    from dtv_utils_torch.parallel import stream as ps
+    from dtv_utils_torch.tx import dvbt as txd
+
+    cfg = dvbt_flagship()
+    fn = ps.batched_dvbt_modulator(cfg, device=dev)
+    halo = ps.HALO_PACKETS * 188
+
+    def call(x, pos):
+        return fn(x, *pos), (x[-1, -halo:], pos[1] + x.shape[0])
+    return Batched(f"dvbt flagship L={L}", L, cfg.ts_bytes_per_superframe,
+                   cfg.samples_per_superframe, call, (None, 0),
+                   lambda b, st: txd.modulate_superframe(cfg, b, st),
+                   lambda: txd.init_state(cfg, device=dev))
+
+
+def batched_dvbt2(dev, L: int) -> Batched:
+    """DVB-T2 BBC through the port's batched modulator (bench.py's shape at
+    L = 4): a stream's position is (the last 187 raw bytes, frame index)."""
+    from dtv_utils_torch.parallel import stream as ps
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt2_bbc()
+    fn = ps._batched_dvbt2_modulator(cfg, device=dev)
+
+    def call(x, pos):
+        return fn(x, *pos), (x[-1, -ps.T2_HALO_BYTES:], pos[1] + x.shape[0])
+    return Batched(f"dvbt2 bbc L={L}", L, cfg.payload_bytes_per_frame,
+                   t2.samples_per_frame(cfg), call, (None, 0),
+                   lambda b, st: t2.modulate_frame(cfg, b, st),
+                   lambda: t2.init_state(cfg, device=dev))
+
+
+def batched_j83b(dev, L: int) -> Batched:
+    """J.83B: L superblocks through ``modulate_superblock`` in one call
+    (rails [2, L·2n], one FIR launch); the position is the chain state."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.tx import j83b as txq
+
+    cfg = J83bConfig()
+
+    def call(x, st):
+        return txq.modulate_superblock(cfg, x.reshape(-1), st)
+    return Batched(f"j83b L={L}", L, txq.SUPERBLOCK_BYTES,
+                   2 * txq.SUPERBLOCK_SYMBOLS, call,
+                   txq.init_state(cfg, device=dev),
+                   lambda b, st: txq.modulate_superblock(cfg, b, st),
+                   lambda: txq.init_state(cfg, device=dev))
+
+
+def batched_chains(dev) -> list[Batched]:
+    """The batched calls the script checks and times: DVB-T at each of
+    BATCH_DVBT, DVB-T2 BBC and J.83B at BATCH_L."""
+    return ([batched_dvbt(dev, L) for L in BATCH_DVBT]
+            + [batched_dvbt2(dev, BATCH_L), batched_j83b(dev, BATCH_L)])
+
+
+def _as_blocks(iq: torch.Tensor, L: int) -> torch.Tensor:
+    """Batched IQ → [L, ...] per block (J.83B rails [2, L·2n] → [L, 2, 2n])."""
+    if iq.is_complex():
+        return iq.reshape(L, -1)
+    return iq.reshape(2, L, -1).transpose(0, 1)
+
+
+def check_batched(dev, b: Batched) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two calls of ``b`` over 2L consecutive blocks of seeded TS (block 0
+    on, then a continuation) equal the serial one-block chain over the
+    same blocks, bit for bit; both calls run again, warm, under
+    ``set_sync_debug_mode("error")``.  A J.83B call must launch the FIR
+    kernel exactly once.  Returns the first call's input and output."""
+    from dtv_utils_torch.ops import fir
+
+    ts = torch.from_numpy(seeded_ts(BATCH_SEED, 2 * b.L * b.block_bytes)
+                          ).to(dev).reshape(2 * b.L, b.block_bytes)
+    st, want = b.state0(), []
+    for blk in ts:
+        iq, st = b.serial(blk, st)
+        want.append(iq)
+    want = torch.stack(want)                # [2L, samples] or [2L, 2, 2n]
+    got = []
+    for sync_mode in (0, "error"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            pos, got = b.pos0, []
+            for x in (ts[:b.L], ts[b.L:]):
+                launches = fir.LAUNCHES
+                iq, pos = b.call(x, pos)
+                launches = fir.LAUNCHES - launches
+                if not iq.is_complex() and launches != 1:
+                    raise AssertionError(f"{b.label}: {launches} FIR launches "
+                                         "in one call")
+                got.append(_as_blocks(iq, b.L))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    got_all = torch.cat(got)
+    if not torch.equal(got_all, want):
+        bad = (got_all != want).reshape(2 * b.L, -1).any(1).nonzero()
+        raise AssertionError(f"{b.label}: batched IQ differs from the serial "
+                             f"chain in blocks {bad.reshape(-1).tolist()}")
+    print(f"{b.label}: 2 batched calls ({2 * b.L} blocks, the second a "
+          "continuation) equal the serial chain bit for bit, no host sync"
+          + (", 1 FIR launch per call" if not want.is_complex() else ""))
+    return ts[:b.L], got[0]
+
+
+def _call_activities(calls: dict, inputs) -> dict[str, tuple[float, float]]:
+    """For each ``calls[name](x)``: (device activities, busy µs) per call
+    under the profiler, over ``inputs[1:]`` after an untimed call on
+    ``inputs[0]``, so no profiled call reads an input a call before it
+    read.  Each call runs alone in a ``record_function`` range and its
+    activities are those launched inside it; spin kernels before and after
+    keep the calls away from the edges of the profiler's window, where a
+    short profiler session was seen to lose a third of them."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        for x in inputs[1:]:
+            for name, fn in calls.items():
+                with record_function(name):
+                    fn(x)
+                torch.cuda.synchronize()
+        torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
+    events, acts, _, _, _ = _trace_summary(prof)
+    n = len(inputs) - 1
+    out = {}
+    for name in calls:
+        inside = _range_activities(events, acts, name)
+        out[name] = (len(inside) / n, _union_us(
+            [(e["ts"], e["ts"] + e["dur"]) for e in inside]) / n)
+    return out
+
+
+def _batch_inputs(dev, b: Batched, count: int) -> list[torch.Tensor]:
+    g = torch.Generator(device=dev).manual_seed(4)
+    ts = torch.randint(0, 256, (count, b.L, b.block_bytes), generator=g,
+                       device=dev, dtype=torch.uint8)
+    ts[:, :, ::188] = 0x47
+    return list(ts)
+
+
+def serve_batched(dev, card: str, b: Batched, one: Batched) -> None:
+    """Batched serving of one stream, L blocks per call, on the step-8
+    protocol (a distinct device-resident input per call, warm-up excluded,
+    CUDA events, 3 repeats of BATCH_ROUNDS calls); device activities and
+    busy time per call under the profiler (BATCH_PROFILED calls on
+    distinct inputs), at L and at 1 (fails if the L call makes
+    BATCH_MAX_GROWTH times the L = 1 call's activities or more); peak
+    memory of one call.  Every profiled and measured call continues its
+    stream, as every timed call does.  Prints one line, ending with the
+    card."""
+    from dtv_utils_torch.utils.timing import timed_stream
+
+    msps, call_ms = [], []
+    for _ in range(3):
+        sec = timed_stream(b.call, _batch_inputs(dev, b, 1 + BATCH_ROUNDS),
+                           [b.pos0])
+        msps.append(BATCH_ROUNDS * b.L * b.samples / sec / 1e6)
+        call_ms.append(sec / BATCH_ROUNDS * 1e3)
+    xs = _batch_inputs(dev, b, 1 + BATCH_PROFILED)
+    pos = {"batched_call": b.pos0, "one_block_call": one.pos0}
+
+    def continuing(name: str, c: Batched):
+        def fn(x):
+            _, pos[name] = c.call(x[:c.L], pos[name])
+        return fn
+    got = _call_activities({"batched_call": continuing("batched_call", b),
+                            "one_block_call": continuing("one_block_call",
+                                                         one)}, xs)
+    (acts, busy_us), (acts1, _) = got["batched_call"], got["one_block_call"]
+    _, peak = _peak(dev, lambda: b.call(xs[0], pos["batched_call"]))
+    busy_ms = busy_us / 1e3
+    share = busy_ms / sorted(call_ms)[1]
+    print(f"{b.label} batched serving, {_tf32()}: {_repeats(msps)} "
+          f"Msamples/s (one stream, {b.L} blocks per call, {BATCH_ROUNDS} "
+          f"timed calls each); {sorted(call_ms)[1]:.4f} ms per call, device "
+          f"{busy_ms / b.L:.4f} ms per block, busy share {share:.3f}; "
+          f"{acts:.1f} device activities per call ({acts1:.1f} at L=1); "
+          f"peak {peak / 1e9:.3f} GB per call; on {card}")
+    if acts >= BATCH_MAX_GROWTH * acts1:
+        raise AssertionError(f"{b.label}: {acts} device activities per call "
+                             f"against {acts1} at L=1")
+
+
+def check_sharded(dev, firsts: dict[str, tuple]) -> None:
+    """World size 1 in an NCCL process group (file rendezvous in a temp
+    dir, closed afterwards): each sharded modulator equals the batched
+    call on the same blocks (``firsts``: label → (input, batched IQ)).
+    Then ``entry`` and ``dryrun_multichip(1)``."""
+    import torch.distributed as dist
+
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.entry import dryrun_multichip, entry
+    from dtv_utils_torch.parallel import multihost as mh
+    from dtv_utils_torch.parallel import stream as ps
+    from dtv_utils_torch.tx import dvbt as txd
+
+    shard = {"dvbt": ps.sharded_dvbt_modulator, "dvbt2":
+             ps.sharded_dvbt2_modulator, "j83b": ps.sharded_j83b_modulator}
+    cfgs = {"dvbt": dvbt_flagship(), "dvbt2": dvbt2_bbc(),
+            "j83b": J83bConfig()}
+    with tempfile.TemporaryDirectory() as d:
+        mh.initialize(Path(d, "rendezvous").as_uri(), 1, 0, device=dev)
+        try:
+            backend = dist.get_backend()
+            for label, (x, want) in firsts.items():
+                name = label.split()[0]
+                got = shard[name](cfgs[name])(x)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{label}: sharded at world size 1 "
+                                         "differs from batched")
+                print(f"{label}: sharded ({backend}, world size 1) equals "
+                      "batched")
+        finally:
+            dist.destroy_process_group()
+    fn, args = entry(device="cuda")
+    iq, _ = fn(*args)
+    want, _ = txd.modulate_superframe(dvbt_flagship(), *args)
+    if not torch.equal(iq, want):
+        raise AssertionError("entry() differs from modulate_superframe")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"entry(device='cuda') equals modulate_superframe; "
+          f"dryrun_multichip(1) ok in {time.perf_counter() - t0:.1f} s")
+
+
 def time_papr(dev) -> list[float]:
     """bench.py's PAPR shape: a 64M-complex chunk generated on the card,
     pass 1 + pass 2 with 13 levels; three repeats of GSa/s."""
@@ -1739,17 +2003,15 @@ def main() -> int:
               f"{sf4_ms:.4f} ms/superframe, on {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 9. DVB-T2 BBC serving, one frame per launch (TF32 off).  bench.py
-    # serves 4 frames per launch through the batched sharded modulator of
-    # parallel/stream.py, which waits for the parallel/ slice of the port.
+    # 9. DVB-T2 BBC serving, one frame per launch, then bench.py's shape:
+    # 4 frames per launch through the batched modulator (TF32 off)
     from dtv_utils_torch.tx import dvbt2 as t2
     spf = t2.samples_per_frame(dvbt2_bbc())
     air_ms = float(1e3 * spf / dvbt2_bbc().sample_rate)
     msps, fr_ms = serve_dvbt2(dev)
     print(f"dvbt2 bbc serving, {_tf32()}: {_repeats(msps)} Msamples/s "
           f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each, one "
-          f"frame per launch; bench.py's 4-frame batched launch is not "
-          f"ported yet) on {card}")
+          f"frame per launch) on {card}")
     print(f"dvbt2 bbc one stream, {_tf32()}: {_repeats(fr_ms, '.4f')} "
           f"ms/frame (air time {air_ms:.3f} ms) on {card}")
     busy_ms, _ = profile_dvbt2(dev)
@@ -1758,8 +2020,29 @@ def main() -> int:
           f"{busy_ms / sorted(fr_ms)[1]:.3f} of one stream's "
           f"{sorted(fr_ms)[1]:.4f} ms/frame, {busy_ms / fr4_ms:.3f} of "
           f"4-stream serving's {fr4_ms:.4f} ms/frame, on {card}")
+    dvbt_1, dvbt_4, dvbt_8, t2_4, j83b_4 = (
+        batched_dvbt(dev, 1), *batched_chains(dev))
+    serve_batched(dev, card, t2_4, batched_dvbt2(dev, 1))   # 4 per launch
 
-    # 10. PAPR scan throughput
+    # 10. batched and sharded streaming at full width: batched equal to the
+    # serial chain (DVB-T L = 4 and 8, DVB-T2 BBC and J.83B L = 4, each
+    # with a continuation) with no host sync, launches that do not grow
+    # with L, batched serving; sharded equal to batched at world size 1
+    # under NCCL; entry() and dryrun_multichip(1)
+    t_batch = time.perf_counter()
+    firsts = {b.label: check_batched(dev, b)
+              for b in (dvbt_4, dvbt_8, t2_4, j83b_4)}
+    serve_batched(dev, card, dvbt_4, dvbt_1)
+    serve_batched(dev, card, dvbt_8, dvbt_1)
+    serve_batched(dev, card, j83b_4, batched_j83b(dev, 1))
+    j83b_x = firsts[j83b_4.label][0]
+    fir.LAUNCHES = 0
+    j83b_4.call(j83b_x, j83b_4.pos0)
+    j83b_batched_launches = fir.LAUNCHES
+    check_sharded(dev, firsts)
+    print(f"batched and sharded phase: {time.perf_counter() - t_batch:.1f} s")
+
+    # 11. PAPR scan throughput
     gsps = time_papr(dev)
     print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
           f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")
@@ -1768,7 +2051,9 @@ def main() -> int:
         "name": "fir_interp2", "route": "cuda",
         "source": "dtv_utils_torch/csrc/fir_interp2.cu",
         "replaces": "dtv_utils_tpu/ops/fir.py:66",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches,
+        "launches_per_batched_j83b_call": j83b_batched_launches,
+        "batched_j83b_superblocks": j83b_x.shape[0], "max_abs_err": max_err,
         "ms": t["kernel_cold"], "cold_ms": t["kernel_cold"],
         "warm_ms": t["kernel_warm"], "plain_ms": t["plain_cold"],
         "plain_warm_ms": t["plain_warm"], "bound_ms": bound_ms,

@@ -29,9 +29,16 @@ def forney_gather_indices(I: int, M: int, n: int) -> np.ndarray:
 
 def forney_interleave(block: torch.Tensor, carry: torch.Tensor,
                       idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One block: block uint8 [n], carry uint8 [C] (zeros at stream start),
-    idx the ``forney_gather_indices`` on the block's device.  Returns
-    (out [n], new_carry [C])."""
-    C = carry.shape[0]
+    """L consecutive blocks of n bytes: block uint8 [L*n], carry uint8 [C]
+    (zeros at stream start), idx the ``forney_gather_indices`` of ONE
+    block (length n) on the block's device.  With n % I == 0, block l
+    gathers at idx + l*n, i.e. from the window ext[l*n : l*n + C + n] of
+    ext = carry ++ block; the L windows are one overlapping view, so the
+    index stays one block long however many blocks a call holds.  Returns
+    (out [L*n], new_carry [C])."""
+    C, n = carry.shape[0], idx.shape[0]
+    if block.shape[0] % n:
+        raise ValueError(f"{block.shape[0]} bytes are not whole blocks of "
+                         f"{n}")
     ext = torch.cat([carry, block])
-    return ext[idx], ext[-C:].clone()
+    return ext.unfold(0, C + n, n)[:, idx].reshape(-1), ext[-C:].clone()

@@ -4,7 +4,8 @@ Port of ``dtv_utils_tpu/tx/dvbt.py``, stage for stage and bit for bit up to
 the carrier grid: energy dispersal → RS(204,188) → Forney outer interleaver
 (I=12, M=17) → K=7 punctured convolutional coder → bit / symbol inner
 interleavers → QAM map → pilots/TPS → unnormalized IFFT → cyclic prefix →
-×0.0022097087, over one superframe (272 OFDM symbols) per call.
+×0.0022097087, over one or more consecutive superframes (272 OFDM symbols
+each) per call.
 
 The chain runs eagerly on the device of its input, with no host sync.  The
 dispersal is an XOR with a mask row picked on the device, the interleavers
@@ -15,6 +16,13 @@ Cells are complex64: ``torch.view_as_real`` of the carrier grid has the
 same bytes as the reference's float32 ``[272, K, 2]``.  The IFFT is
 ``ops/cfft`` (cuFFT on the card).  Host tables are NumPy copies of the
 reference's ``_plan``, uploaded once per device.
+
+Every state coupling of the chain (the dispersal phase, the Forney carry,
+the coder memory) is continuous across superframe boundaries, so a call on
+L consecutive superframes runs each stage once over the L superframes as one
+stream, with the same launches as a call on one: one superframe is the
+L = 1 case of the same code.  The tables that grow with L (the dispersal
+rows, the Forney index) are cached per length.
 """
 
 from __future__ import annotations
@@ -99,15 +107,10 @@ def state_to_numpy(s: DvbtState) -> dict[str, np.ndarray]:
 def _plan(cfg: DvbtConfig) -> dict:
     """All static tables for one config (host NumPy, cached): a copy of the
     reference's ``_plan``, same keys, shapes and dtypes."""
-    n_pkt = cfg.rs_blocks_per_superframe
     v = cfg.constellation.bits_per_symbol
-    mask, _ = dvbt_dispersal_mask()
     # dispersal mask for every possible packet phase (8 rows)
-    total = n_pkt * 188
-    masks = np.empty((8, total), dtype=np.uint8)
-    base = np.tile(mask, total // len(mask) + 2)
-    for ph in range(8):
-        masks[ph] = base[ph * 188: ph * 188 + total]
+    masks = dispersal_rows(cfg.rs_blocks_per_superframe,
+                           torch.device("cpu")).numpy().copy()
     # puncture: per-period column selector (serial order: X_i then Y_i)
     xp, yp = PUNCTURE_PATTERNS[cfg.code_rate.value]
     keep_cols = []
@@ -190,49 +193,77 @@ def _device_plan(cfg: DvbtConfig, device: torch.device) -> dict:
     once per (config, device)."""
     p = _plan(cfg)
     n_sym = cfg.symbols_per_superframe
-    n_bytes = cfg.rs_blocks_per_superframe * 204
 
     def up(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
     mask_sym = np.tile(p["data_mask"], (n_sym // 4, 1))      # [272, K]
     return dict(
-        masks=up(p["masks"]),
         gen_B=up(p["gen_B"], torch.float32),
         lut=torch.view_as_complex(up(p["lut"])),              # complex64 [2^v]
         comp_idx=up(p["comp_idx"], torch.int64),              # [4, K]
         data_mask=up(mask_sym),                               # bool [272, K]
         static_vals=torch.view_as_complex(up(p["static_vals"])),
-        forney_idx=up(forney_gather_indices(OUTER_I, OUTER_M, n_bytes)),
     )
+
+
+@functools.lru_cache(maxsize=8)
+def dispersal_rows(n_pkt: int, device: torch.device) -> torch.Tensor:
+    """uint8 [8, n_pkt*188]: row ph is the dispersal mask of ``n_pkt``
+    packets that start at packet phase ph (``_plan``'s ``masks`` at one
+    superframe).  The rows are overlapping views of one tiled mask, so the
+    table costs ``n_pkt*188 + 7*188`` bytes per length and device; the
+    cache keeps the last 8 (length, device) pairs."""
+    mask, _ = dvbt_dispersal_mask()
+    total = n_pkt * 188
+    base = np.tile(mask, (total + 7 * 188) // len(mask) + 1)
+    base = torch.from_numpy(base[:total + 7 * 188]).to(device)
+    return base.as_strided((8, total), (188, 1))
+
+
+@functools.cache
+def _forney_index(cfg: DvbtConfig, device: torch.device) -> torch.Tensor:
+    """The outer interleaver's gather index of one superframe; a call on L
+    superframes reuses it for each (``forney_interleave``)."""
+    return torch.from_numpy(forney_gather_indices(
+        OUTER_I, OUTER_M, cfg.rs_blocks_per_superframe * 204)).to(device)
 
 
 # ---------------------------------------------------------------------------
 # Chain
 # ---------------------------------------------------------------------------
 
+def _check_superframes(cfg: DvbtConfig, ts: torch.Tensor) -> None:
+    blk = cfg.ts_bytes_per_superframe
+    if ts.dim() != 1 or not ts.shape[0] or ts.shape[0] % blk:
+        raise ValueError(f"need a 1-d multiple of {blk} TS bytes, got "
+                         f"{tuple(ts.shape)}")
+
+
 def disperse(cfg: DvbtConfig, ts: torch.Tensor,
              packet_phase: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1, energy dispersal: XOR with the mask row of the current
-    packet phase, selected on the device (no host sync).  Returns the
-    dispersed bytes and the next phase (int32 0-d)."""
-    masks = _device_plan(cfg, ts.device)["masks"]
-    row = masks.index_select(0, (packet_phase % 8).reshape(1))
-    return ts ^ row[0], (packet_phase + cfg.rs_blocks_per_superframe) % 8
+    """Stage 1, energy dispersal over whole packets: XOR with the mask row
+    of the current packet phase, selected on the device (no host sync).
+    Returns the dispersed bytes and the next phase (int32 0-d)."""
+    del cfg
+    n_pkt = ts.shape[0] // 188
+    rows = dispersal_rows(n_pkt, ts.device)
+    row = rows.index_select(0, (packet_phase % 8).reshape(1))
+    return ts ^ row[0], (packet_phase + n_pkt % 8) % 8
 
 
 def outer_interleave(cfg: DvbtConfig, coded: torch.Tensor,
                      carry: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage 3, the Forney outer interleaver: one gather from
-    carry ++ block.  Every branch start C/12 - 17b must be >= 0, so the
-    carry must reach back I*M*(I-1) bytes."""
+    carry ++ block, over any whole number of superframes.  Every branch
+    start C/12 - 17b must be >= 0, so the carry must reach back I*M*(I-1)
+    bytes."""
     C = carry.shape[0]
     if C // OUTER_I < OUTER_M * (OUTER_I - 1):
         raise ValueError(f"outer carry of {C} bytes is shorter than the "
                          f"{OUTER_I * OUTER_M * (OUTER_I - 1)} the deepest "
                          "branch reaches back")
-    return forney_interleave(coded, carry,
-                             _device_plan(cfg, coded.device)["forney_idx"])
+    return forney_interleave(coded, carry, _forney_index(cfg, coded.device))
 
 
 def inner_code(cfg: DvbtConfig, outer: torch.Tensor,
@@ -240,13 +271,13 @@ def inner_code(cfg: DvbtConfig, outer: torch.Tensor,
     """Stages 4+5, conv coder + puncture + demux + bit interleave as ONE
     GF(2) product: cell bit-planes = (windows @ B) & 1, with windows the
     bit stream viewed as overlapping [M, W] rows (a zero pad and two
-    reshapes).  Returns cell words int32 [n_cells] (bit-plane 0 = MSB) and
-    the next coder state."""
+    reshapes).  ``outer`` holds whole superframes.  Returns cell words
+    int32 [n_cells] (bit-plane 0 = MSB) and the next coder state."""
     pg = _plan(cfg)
     dbits = bitops.bytes_to_bits(outer)
     new_conv_state = torch.flip(dbits[-6:], (0,))       # most recent first
     P, S, W = pg["gen_P"], pg["gen_S"], pg["gen_W"]
-    M = cfg.cells_per_superframe // P
+    M = dbits.shape[0] // S                               # periods of P cells
     d_ext = torch.cat([torch.flip(conv_state, (0,)), dbits]).to(torch.float32)
     A = F.pad(d_ext, (0, S * (M + 1) - d_ext.shape[0]))
     head = A[:S * M].reshape(M, S)
@@ -261,22 +292,27 @@ def inner_code(cfg: DvbtConfig, outer: torch.Tensor,
 def assemble_carriers(cfg: DvbtConfig, words: torch.Tensor) -> torch.Tensor:
     """Stages 6-8, symbol interleave + QAM map + pilots/TPS: one gather per
     pilot phase, the LUT, then the static pilot/TPS values where no data
-    goes.  words int32 [n_cells] → carriers complex64 [272, K]."""
+    goes (272 = 68·4 symbols, so the pilot phase and the TPS rows repeat
+    per superframe).  words int32 [L*n_cells] → carriers complex64
+    [L*272, K]."""
     p = _device_plan(cfg, words.device)
     n_sym = cfg.symbols_per_superframe
-    words4 = words.reshape(n_sym // 4, 4, cfg.mode.data_carriers)
-    idx = p["comp_idx"].expand(n_sym // 4, -1, -1)      # [n_sym/4, 4, K]
+    K = cfg.mode.carriers
+    words4 = words.reshape(-1, 4, cfg.mode.data_carriers)
+    idx = p["comp_idx"].expand(words4.shape[0], -1, -1)  # [L*n_sym/4, 4, K]
     gathered = torch.gather(words4, 2, idx)              # int32
     data_part = p["lut"].index_select(0, gathered.reshape(-1)).reshape(
-        n_sym, -1)                                      # complex64 [272, K]
-    return torch.where(p["data_mask"], data_part, p["static_vals"])
+        -1, n_sym, K)                                   # complex64 [L, 272, K]
+    return torch.where(p["data_mask"], data_part,
+                       p["static_vals"]).reshape(-1, K)
 
 
 def encode_to_carriers(cfg: DvbtConfig, ts: torch.Tensor,
                        state: DvbtState) -> tuple[torch.Tensor, DvbtState]:
     """Stages 1-8 (dispersal … pilot/TPS assembly): ts uint8
-    [ts_bytes_per_superframe] → carrier grid complex64 [272, K] + next
-    state, all on ``ts.device``."""
+    [L * ts_bytes_per_superframe], L consecutive superframes → carrier grid
+    complex64 [L*272, K] + the state after the last, all on ``ts.device``."""
+    _check_superframes(cfg, ts)
     dispersed, phase = disperse(cfg, ts, state.packet_phase)
     coded = DVBT_RS().encode_bytes(dispersed.reshape(-1, 188)).reshape(-1)
     outer, outer_carry = outer_interleave(cfg, coded, state.outer_carry)
@@ -305,8 +341,9 @@ def carriers_to_iq(cfg: DvbtConfig, carriers: torch.Tensor) -> torch.Tensor:
 
 def modulate_superframe(cfg: DvbtConfig, ts: torch.Tensor,
                         state: DvbtState) -> tuple[torch.Tensor, DvbtState]:
-    """One superframe: ts uint8 [ts_bytes_per_superframe] → IQ complex64
-    [272 * (fft + guard)] on ``ts.device``, plus the next stream state."""
+    """One superframe, or L consecutive ones: ts uint8
+    [L * ts_bytes_per_superframe] → IQ complex64 [L * 272 * (fft + guard)]
+    on ``ts.device``, plus the stream state after the last."""
     carriers, new_state = encode_to_carriers(cfg, ts, state)
     return carriers_to_iq(cfg, carriers), new_state
 

@@ -5,7 +5,12 @@ to the carrier grid, over one T2 frame per call: mode adaptation (sync-byte
 CRC-8, BB headers) → BB scrambler → BCH → LDPC → bit interleaver + demux →
 (rotated) QAM → cell and time interleavers → frame mapping (L1, dummy
 cells, frequency interleaver, pilots) → unnormalized IFFT → [tone
-reservation] → cyclic prefix → P1.
+reservation] → cyclic prefix → P1.  A call takes one frame or L
+consecutive frames: the stream state (the packet phase and the CRC-8
+window) is continuous across frames, so mode adaptation runs once over the
+L frames' bytes, the FEC and mapping stages are row-wise over their
+L·blocks FEC blocks, and the frame gather and the back end treat the L
+frames as a batch: a call makes the launches of a one-frame call.
 
 The chain runs eagerly on the device of its input, with no host sync: the
 packet phase stays a 0-d tensor, and the offset it sets becomes a device
@@ -162,13 +167,6 @@ def _device_plan(cfg: Dvbt2Config, device: torch.device) -> dict:
     """``_plan`` on ``device``, in the forms the chain consumes; uploaded
     once per (config, device)."""
     p = _plan(cfg)
-    n_sync = p["n_bytes"] // 188 + 1
-    sync_off = np.arange(n_sync, dtype=np.int64) * 188
-    # the BB header's constant bytes; SYNCD (bytes 7-8) is set per frame
-    dfl = cfg.kbch - 80
-    hdr = np.zeros((cfg.fec_blocks, 9), dtype=np.uint8)
-    hdr[:, :7] = [0xF0, 0, 1504 >> 8, 1504 & 0xFF, dfl >> 8, dfl & 0xFF,
-                  0x47]                   # MATYPE (TS, SIS, CCM), UPL, DFL
     # bit interleaver then demux, composed into one gather of the frame
     comp = np.arange(cfg.nldpc, dtype=np.int64)
     if p["bit_perm"] is not None:
@@ -184,16 +182,45 @@ def _device_plan(cfg: Dvbt2Config, device: torch.device) -> dict:
         hdr_crc_m=_up(p["hdr_crc_m"], device, torch.float32),
         bch_m=_up(p["bch_m"], device, torch.float32),
         scramble=_up(p["scramble"], device),
-        sync_off=_up(sync_off, device),                   # int64 [n_sync]
-        win_off=_up(sync_off[:, None] + np.arange(187), device),
-        hdr=_up(hdr, device),
-        block_bytes=_up(np.arange(nb) * p["dfl_bytes"], device, torch.int32),
         ldpc_idx=_up(ldpc_idx.reshape(-1), device),       # [360 * E]
         ldpc_sel=_up(p["ldpc_sel"], device, torch.float32),
         comp=_up(comp, device),
         lut=_up(p["lut"], device),                        # float32 [2^v, 2]
         ci_flat=_up(ci_flat, device),
     )
+
+
+@functools.lru_cache(maxsize=4)
+def _stream_plan(cfg: Dvbt2Config, n_frames: int, device: torch.device
+                 ) -> dict:
+    """The mode-adaptation tables of ``n_frames`` consecutive frames on
+    ``device``: sync slots every 188 bytes, each one's 187-byte CRC window,
+    each FEC block's first byte as a packet offset (mod 188, taken in
+    int64 on the host, so no index wraps however long the call), and the
+    BB headers' constant bytes (SYNCD, bytes 7-8, is set per call).  The
+    tables grow with ``n_frames`` (35 MB at BBC, 4 frames), so the cache
+    keeps the last 4 (config, length, device) triples."""
+    n = n_frames * _plan(cfg)["n_bytes"]
+    sync_off = np.arange(n // 188 + 1, dtype=np.int64) * 188
+    blocks = np.arange(n_frames * cfg.fec_blocks, dtype=np.int64)
+    dfl = cfg.kbch - 80
+    hdr = np.zeros((len(blocks), 7), dtype=np.uint8)
+    hdr[:] = [0xF0, 0, 1504 >> 8, 1504 & 0xFF, dfl >> 8, dfl & 0xFF,
+              0x47]                       # MATYPE (TS, SIS, CCM), UPL, DFL
+    return dict(
+        sync_off=_up(sync_off, device),                   # int64 [n_sync]
+        win_off=_up(sync_off[:, None] + np.arange(187), device),
+        block_phase=_up(blocks * _plan(cfg)["dfl_bytes"] % 188, device,
+                        torch.int32),
+        hdr=_up(hdr, device))
+
+
+def _n_frames(cfg: Dvbt2Config, ts: torch.Tensor) -> int:
+    n = _plan(cfg)["n_bytes"]
+    if ts.dim() != 1 or not ts.shape[0] or ts.shape[0] % n:
+        raise ValueError(f"need a 1-d multiple of {n} TS bytes, got "
+                         f"{tuple(ts.shape)}")
+    return ts.shape[0] // n
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +235,9 @@ def _crc8_rows(dp: dict, rows_bytes: torch.Tensor) -> torch.Tensor:
 
 def mode_adapt(cfg: Dvbt2Config, ts: torch.Tensor, state: Dvbt2State
                ) -> tuple[torch.Tensor, Dvbt2State]:
-    """TS bytes uint8 [n_bytes] -> BBFRAMEs uint8 [fec_blocks, kbch] bits
-    (unscrambled) and the next state (EN 302 755 §5.1, TS, normal mode).
+    """TS bytes uint8 [L*n_bytes] of L consecutive frames -> BBFRAMEs
+    uint8 [L*fec_blocks, kbch] bits (unscrambled) and the state after the
+    last frame (EN 302 755 §5.1, TS, normal mode).
 
     The 0x47 sync byte of each packet becomes the CRC-8 of the previous
     packet's 187 bytes.  Sync positions are first + 188k with
@@ -217,30 +245,31 @@ def mode_adapt(cfg: Dvbt2Config, ts: torch.Tensor, state: Dvbt2State
     gather at first + [188k + j] and the replacement one ``index_copy``; a
     sync position past the frame is sent to a spare slot and cropped."""
     dp = _device_plan(cfg, ts.device)
-    n = _plan(cfg)["n_bytes"]
-    n_sync = dp["sync_off"].shape[0]
+    sp = _stream_plan(cfg, _n_frames(cfg, ts), ts.device)
+    n = ts.shape[0]
+    n_sync = sp["sync_off"].shape[0]
     phase = state.packet_phase
     first = (188 - phase) % 188
     # ext = prev_tail ++ ts: window k covers the 187 bytes before sync k
     ext = torch.cat([state.prev_tail, ts,
                      ts.new_zeros(n_sync * 188 - n)])
-    crcs = _crc8_rows(dp, ext[first + dp["win_off"]])    # uint8 [n_sync]
-    pos = first + dp["sync_off"]
+    crcs = _crc8_rows(dp, ext[first + sp["win_off"]])    # uint8 [n_sync]
+    pos = first + sp["sync_off"]
     pos = torch.where(pos < n, pos, n)
     adapted = torch.cat([ts, ts.new_zeros(1)]).index_copy(0, pos, crcs)[:n]
-    data_bits = bitops.bytes_to_bits(adapted).reshape(cfg.fec_blocks, -1)
+    data_bits = bitops.bytes_to_bits(adapted).reshape(-1, cfg.kbch - 80)
 
     # BB headers: MATYPE, UPL, DFL, SYNC fixed; SYNCD from the packet phase
     # at each block's first byte; CRC-8 over the 72 bits
-    phase_b = (phase + dp["block_bytes"]) % 188
+    phase_b = (phase + sp["block_phase"]) % 188
     syncd = ((188 - phase_b) % 188) * 8
-    hdr = torch.cat([dp["hdr"][:, :7],
+    hdr = torch.cat([sp["hdr"],
                      torch.stack([syncd >> 8, syncd & 0xFF], 1)
                      .to(torch.uint8)], 1)
     hdr_bits = bitops.bytes_to_bits(hdr)                     # [blocks, 72]
     crc_bits = gf2_matmul(hdr_bits, dp["hdr_crc_m"])
     frames = torch.cat([hdr_bits, crc_bits, data_bits], 1)  # [blocks, kbch]
-    return frames, Dvbt2State(packet_phase=(phase + n) % 188,
+    return frames, Dvbt2State(packet_phase=(phase + n % 188) % 188,
                               prev_tail=ts[-187:])
 
 
@@ -474,25 +503,29 @@ def _device_frame(cfg: Dvbt2Config, device: torch.device,
 
 def _assemble_grid(cfg: Dvbt2Config, cells: torch.Tensor,
                    src_key: str) -> torch.Tensor:
+    """One gather per frame of ``cells`` (the payload of L frames, frame
+    by frame) and the static carriers → grid [L*L_F, K]."""
     df = _device_frame(cfg, cells.device, src_key)
-    grid = torch.where(df["payload"], cells[df["idx"]], df["static"])
-    return grid.reshape(cfg.frame_symbols, cfg.carriers)
+    n_payload = cfg.fec_blocks * cfg.cells_per_fec_block
+    frames = cells.reshape(-1, n_payload)[:, df["idx"]]  # [L, L_F*K]
+    grid = torch.where(df["payload"], frames, df["static"])
+    return grid.reshape(-1, cfg.carriers)
 
 
 def build_frame_grid(cfg: Dvbt2Config, payload: torch.Tensor
                      ) -> torch.Tensor:
-    """PLP payload cells complex64 [n_payload] (already cell/time-
-    interleaved) -> carrier grid complex64 [L_F, K] with L1, dummy cells,
-    frequency interleaving and pilots."""
+    """PLP payload cells complex64 [L*n_payload] of L frames (already
+    cell/time-interleaved) -> carrier grid complex64 [L*L_F, K] with L1,
+    dummy cells, frequency interleaving and pilots."""
     return _assemble_grid(cfg, payload, "src")
 
 
 def build_frame_grid_fused(cfg: Dvbt2Config, cells: torch.Tensor
                            ) -> torch.Tensor:
-    """Mapped cells complex64 [blocks, ncells] (NOT yet cell/time-
-    interleaved) -> carrier grid, with the §6.4/§6.5 interleavers composed
-    into the frame gather (equal to ``cell_time_interleave`` +
-    ``build_frame_grid``, bit for bit)."""
+    """Mapped cells complex64 [L*blocks, ncells] of L frames (NOT yet
+    cell/time-interleaved) -> carrier grid [L*L_F, K], with the §6.4/§6.5
+    interleavers composed into the frame gather (equal to
+    ``cell_time_interleave`` + ``build_frame_grid``, bit for bit)."""
     return _assemble_grid(cfg, cells.reshape(-1), "src_fused")
 
 
@@ -551,10 +584,10 @@ def _device_back(cfg: Dvbt2Config, device: torch.device) -> dict:
 def _tr_step(cfg: Dvbt2Config, x: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One clip-and-filter iteration on time-domain symbols complex64
-    [L_F, fft]; returns the new symbols and each symbol's peak index (the
-    first maximum of |x|^2), int64 [L_F]."""
+    [L*L_F, fft] of L frames; returns the new symbols and each symbol's
+    peak index (the first maximum of |x|^2), int64 [L*L_F]."""
     db = _device_back(cfg, x.device)
-    power = x.real * x.real + x.imag * x.imag              # [lf, fft]
+    power = x.real * x.real + x.imag * x.imag              # [L*lf, fft]
     rms = torch.sqrt(power.mean(1))
     m = torch.argmax(power, 1)                             # [lf]
     peak = x.gather(1, m[:, None])[:, 0]
@@ -563,14 +596,15 @@ def _tr_step(cfg: Dvbt2Config, x: torch.Tensor
     scale = torch.where(mag > 0, excess / torch.clamp_min(mag, 1e-30), 0.0)
     alpha = peak * scale                                   # complex excess
     idx = (db["tr_pos"][None, :] - m[:, None]) % cfg.fft_size
-    kern = db["tr_kern"][db["tr_kind"][:, None], idx]      # [lf, fft]
+    idx = idx.reshape(-1, cfg.frame_symbols, cfg.fft_size)  # [L, lf, fft]
+    kern = db["tr_kern"][db["tr_kind"][:, None], idx].reshape(x.shape)
     return x - alpha[:, None] * kern, m
 
 
 def papr_reduce_tr(cfg: Dvbt2Config, time_syms: torch.Tensor
                    ) -> torch.Tensor:
     """Clip-and-filter tone reservation on time-domain symbols complex64
-    [L_F, fft] (vclip 3.3, 3 iterations: dvbt2-blade.py:53-54).
+    [L*L_F, fft] (vclip 3.3, 3 iterations: dvbt2-blade.py:53-54).
 
     Each iteration finds the peak sample of every symbol and, where its
     magnitude exceeds PAPR_VCLIP × the symbol's RMS, subtracts the unit-peak
@@ -584,8 +618,8 @@ def papr_reduce_tr(cfg: Dvbt2Config, time_syms: torch.Tensor
 
 
 def time_symbols(cfg: Dvbt2Config, grid: torch.Tensor) -> torch.Tensor:
-    """Carrier grid complex64 [L_F, K] -> time-domain symbols complex64
-    [L_F, fft]: centred carriers, ifftshift, unnormalized IFFT."""
+    """Carrier grid complex64 [n_sym, K] -> time-domain symbols complex64
+    [n_sym, fft]: centred carriers, ifftshift, unnormalized IFFT."""
     fft = cfg.fft_size
     K = cfg.carriers
     left = (fft - K + 1) // 2
@@ -596,23 +630,26 @@ def time_symbols(cfg: Dvbt2Config, grid: torch.Tensor) -> torch.Tensor:
 
 
 def grid_to_iq(cfg: Dvbt2Config, grid: torch.Tensor) -> torch.Tensor:
-    """Carrier grid complex64 [L_F, K] -> one T2 frame of IQ complex64
-    [2048 + L_F*(fft+gi)]: time symbols, [tone reservation,] cyclic prefix,
-    ×OUTPUT_SCALE/sqrt(fft), with P1 first."""
+    """Carrier grid complex64 [L*L_F, K] of L frames -> IQ complex64
+    [L*(2048 + L_F*(fft+gi))]: time symbols, [tone reservation,] cyclic
+    prefix, ×OUTPUT_SCALE/sqrt(fft), with P1 before each frame."""
     fft = cfg.fft_size
     gi = cfg.guard_samples
     time = time_symbols(cfg, grid)
     if cfg.papr_tr:
         time = papr_reduce_tr(cfg, time)
     sym = torch.cat([time[:, fft - gi:], time], 1)
-    body = sym.reshape(-1) * float(OUTPUT_SCALE / np.sqrt(fft))
-    return torch.cat([_device_back(cfg, grid.device)["p1"], body])
+    n_frames = grid.shape[0] // cfg.frame_symbols
+    body = sym.reshape(n_frames, -1) * float(OUTPUT_SCALE / np.sqrt(fft))
+    p1 = _device_back(cfg, grid.device)["p1"]
+    return torch.cat([p1.expand(n_frames, -1), body], 1).reshape(-1)
 
 
 def modulate_frame(cfg: Dvbt2Config, ts: torch.Tensor, state: Dvbt2State
                    ) -> tuple[torch.Tensor, Dvbt2State]:
-    """One T2 frame: TS bytes uint8 [payload_bytes_per_frame] -> IQ
-    complex64 [samples_per_frame] on ``ts.device``, plus the next state."""
+    """One T2 frame, or L consecutive ones: TS bytes uint8
+    [L * payload_bytes_per_frame] -> IQ complex64 [L * samples_per_frame]
+    on ``ts.device``, plus the state after the last frame."""
     bb, state = mode_adapt(cfg, ts, state)
     fec = fec_encode(cfg, bb)
     cells = interleave_and_map(cfg, fec)

@@ -5,7 +5,12 @@ transport framing → 7-bit symbolization → RS(128,122) over GF(128) →
 (I=128, J=4) convolutional interleaver → GF(128) randomizer → frame sync →
 trellis-coded modulation → 64-QAM map → RRC interpolate-by-2, over a
 "superblock" of 188 FEC frames (6405 TS packets in, 1,806,210 symbols,
-3,612,420 complex samples out).
+3,612,420 complex samples out).  A call takes one superblock or L
+consecutive ones: every state coupling (the interleaver carry, the coder
+memories, the precoder's running quadrant, the filter history) is
+continuous across superblocks, so each stage runs once over the L
+superblocks as one stream, with the launches of a one-superblock call and
+one FIR launch.
 
 The chain runs eagerly on the device of its input.  GF(2)-linear stages are
 float32 matrix products (``core/galois.gf2_matmul``), the interleaver is one
@@ -272,27 +277,32 @@ def rs_encode(symbols7: torch.Tensor) -> torch.Tensor:
     return bitops.bits_to_words(cw_bits, 7)
 
 
-def interleave(symbols: torch.Tensor,
-               carry: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def interleave(symbols: torch.Tensor, carry: torch.Tensor,
+               blocks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Forney (I=128, J=4) over 7-bit symbols: out[k]=in[k - (k%I)*I*J].
 
     With ext = carry ++ symbols viewed [*, I], the output is the column
     shear out2d[r, b] = ext2d[r + C/I - J*b, b] (C = carry length), done as
-    one gather with an index cached per (n, C, device).  Every branch start
-    C/I - J*b must be >= 0: a negative index would silently wrap to the end
-    of ext, so both conditions are checked."""
-    n = symbols.shape[0]
+    one gather with an index cached per (n, C, device) for a block of n
+    symbols.  ``symbols`` holds ``blocks`` such blocks; block l gathers at
+    the same index from the window ext[l*n : l*n + C + n], the windows
+    being one overlapping view.  Every branch start C/I - J*b must be
+    >= 0: a negative index would silently wrap to the end of ext, so both
+    conditions are checked."""
+    n = symbols.shape[0] // blocks
     C = carry.shape[0]
-    if n % ILV_I or C % (ILV_I * ILV_J):
-        raise ValueError(f"need n % {ILV_I} == 0 and C % {ILV_I * ILV_J} "
-                         f"== 0, got n={n}, C={C}")
+    if n * blocks != symbols.shape[0] or n % ILV_I \
+            or C % (ILV_I * ILV_J):
+        raise ValueError(f"need {blocks} blocks of n % {ILV_I} == 0 and "
+                         f"C % {ILV_I * ILV_J} == 0, got "
+                         f"{symbols.shape[0]} symbols, C={C}")
     if C // ILV_I < ILV_J * (ILV_I - 1):
         raise ValueError(f"carry of {C} symbols is shorter than the "
                          f"{ILV_I * ILV_J * (ILV_I - 1)} the deepest branch "
                          "reaches back")
     ext = torch.cat([carry, symbols])
-    out = ext[_ilv_index(n, C, ext.device)]
-    return out, ext[-C:].clone()
+    out = ext.unfold(0, C + n, n)[:, _ilv_index(n, C, ext.device)]
+    return out.reshape(-1), ext[-C:].clone()
 
 
 def conv_encode_45(bits: torch.Tensor,
@@ -377,12 +387,16 @@ def rrc_interpolate(cells: torch.Tensor, tail: torch.Tensor,
 
 def encode_to_cells(cfg: J83bConfig, ts: torch.Tensor,
                     state: J83bState) -> tuple[torch.Tensor, J83bState]:
-    """Stages framing … 64-QAM map: ts uint8 [6405*188] → rail-major IQ
-    cells float32 [2, 1,806,210] + next state (rrc_tail unchanged here)."""
+    """Stages framing … 64-QAM map: ts uint8 [L*6405*188] of L
+    superblocks → rail-major IQ cells float32 [2, L*1,806,210] + the state
+    after the last (rrc_tail unchanged here)."""
     del cfg
     dev = ts.device
-    framed = transport_framing(
-        ts.reshape(PACKETS_PER_SUPERBLOCK, 188)).reshape(-1)
+    if ts.dim() != 1 or not ts.shape[0] or ts.shape[0] % SUPERBLOCK_BYTES:
+        raise ValueError(f"need a 1-d multiple of {SUPERBLOCK_BYTES} TS "
+                         f"bytes, got {tuple(ts.shape)}")
+    n_sb = ts.shape[0] // SUPERBLOCK_BYTES
+    framed = transport_framing(ts.reshape(-1, 188)).reshape(-1)
 
     # 7-bit symbolization (MSB-first across byte boundaries)
     bits = bitops.bytes_to_bits(framed)
@@ -392,16 +406,16 @@ def encode_to_cells(cfg: J83bConfig, ts: torch.Tensor,
     cw = rs_encode(info_syms.reshape(-1, RS_K)).reshape(-1)
 
     # convolutional interleaver over symbols
-    inter, ilv_carry = interleave(cw, state.ilv_carry)
+    inter, ilv_carry = interleave(cw, state.ilv_carry, n_sb)
 
     # randomizer (GF add = XOR), identical sequence every frame
-    randomized = inter ^ _device_table("randomizer", dev)
+    randomized = inter.reshape(n_sb, -1) ^ _device_table("randomizer", dev)
 
     # frame sync insertion: per frame, 53760 payload bits + 42 sync bits
     pay_bits = bitops.words_to_bits(
-        randomized.reshape(FRAMES_PER_SUPERBLOCK, FRAME_SYMBOLS), 7)
-    frame_bits = torch.cat([pay_bits, _device_table("fsync", dev)],
-                           dim=1).reshape(-1)
+        randomized.reshape(n_sb, FRAMES_PER_SUPERBLOCK, FRAME_SYMBOLS), 7)
+    fsync = _device_table("fsync", dev).expand(n_sb, -1, -1)
+    frame_bits = torch.cat([pay_bits, fsync], dim=2).reshape(-1)
 
     # trellis-coded modulation → 6-bit words → constellation
     words, conv_a, conv_b, diff = trellis_encode(
@@ -414,8 +428,9 @@ def encode_to_cells(cfg: J83bConfig, ts: torch.Tensor,
 
 def modulate_superblock(cfg: J83bConfig, ts: torch.Tensor,
                         state: J83bState) -> tuple[torch.Tensor, J83bState]:
-    """188 FEC frames: ts uint8 [6405*188] → rail-major IQ float32
-    [2, 3,612,420] (``cplx.rails_to_np`` converts to host complex64)."""
+    """188 FEC frames per superblock: ts uint8 [L*6405*188] of L
+    superblocks → rail-major IQ float32 [2, L*3,612,420] in one FIR launch
+    (``cplx.rails_to_np`` converts to host complex64)."""
     cells, state = encode_to_cells(cfg, ts, state)
     iq, rrc_tail = rrc_interpolate(cells, state.rrc_tail, rrc_taps(cfg))
     return iq, J83bState(ilv_carry=state.ilv_carry, conv_a=state.conv_a,

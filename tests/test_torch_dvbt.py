@@ -232,6 +232,25 @@ def test_forney_three_blocks_with_carry():
         np.testing.assert_array_equal(carry_s.numpy(), np.asarray(carry_j))
 
 
+def test_forney_blocks_in_one_call():
+    """Three blocks in one call gather with one block's index from three
+    overlapping windows: equal to the reference over the same bytes as one
+    block; a length that is not whole blocks raises."""
+    I, Mm = T.OUTER_I, T.OUTER_M
+    n = 24 * 204
+    stream = RNG.integers(0, 256, size=3 * n, dtype=np.uint8)
+    want, carry_j = jilv.forney_interleave(
+        jnp.asarray(stream), jnp.zeros(jilv.forney_carry_len(I, Mm), jnp.uint8),
+        jnp.asarray(jilv.forney_gather_indices(I, Mm, 3 * n)))
+    idx = torch.from_numpy(tilv.forney_gather_indices(I, Mm, n))
+    carry = torch.zeros(tilv.forney_carry_len(I, Mm), dtype=torch.uint8)
+    got, carry_t = tilv.forney_interleave(torch.from_numpy(stream), carry, idx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(carry_t.numpy(), np.asarray(carry_j))
+    with pytest.raises(ValueError):
+        tilv.forney_interleave(torch.from_numpy(stream[:-12]), carry, idx)
+
+
 def test_outer_interleave_rejects_short_carry():
     with pytest.raises(ValueError):
         T.outer_interleave(CFG_MIN, torch.zeros(204 * 12, dtype=torch.uint8),

@@ -139,6 +139,20 @@ def test_interleave_carried_across_two_calls():
         np.testing.assert_array_equal(carry_t.numpy(), np.asarray(carry_j))
 
 
+def test_interleave_blocks_in_one_call():
+    """Three blocks in one call gather with one block's index from three
+    overlapping windows; output and carry equal the reference's over the
+    same symbols as one block."""
+    n = T.ILV_I * 50
+    syms = RNG.integers(0, 128, size=3 * n, dtype=np.int32)
+    want, carry_j = J.interleave(jnp.asarray(syms),
+                                 J.init_state(JConfig()).ilv_carry)
+    got, carry_t = T.interleave(torch.from_numpy(syms),
+                                T.init_state(device="cpu").ilv_carry, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(carry_t.numpy(), np.asarray(carry_j))
+
+
 @pytest.mark.parametrize("n,C", [(100, T.ILV_I * T.ILV_J * 127),
                                  (T.ILV_I, T.ILV_I * T.ILV_J * 126)])
 def test_interleave_rejects_bad_shapes(n, C):
