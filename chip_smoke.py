@@ -39,7 +39,17 @@ against a golden made from the JAX reference:
   FIR launch per J.83B call, and fewer than twice a one-block call's
   device activities; the sharded modulators at world size 1 in an NCCL
   process group equal to the batched ones; ``entry()`` and
-  ``dryrun_multichip(1)``.
+  ``dryrun_multichip(1)``;
+* the stage profiler (``utils/profile.py``, ``dtv profile``) on every
+  chain at full width, TF32 off: each row within 105 % of the H100's
+  roofline, with device time when queued behind a spin kernel, the FIR
+  kernel launched in every call of the J.83B rows that run it and no
+  faster than its own timing, each FULL
+  row no faster than the serving profile's device time per block, and
+  ``dtv profile -j papr`` as a subprocess; the rate oracles
+  (``dvbtrate``, ``dvbs2rate``, ``atsc3rate``) through the port's CLI and
+  the native analyzers built by ``analysis/native.py`` (``l1dump``,
+  ``flags264``, ``xport``) against ``tests/golden``.
 
 The FIR kernel is checked at the main path's size and at edge sizes, on
 rows at every 4-byte alignment and in chained calls, and timed cold (L2
@@ -134,6 +144,25 @@ BATCH_PROFILED = 3                      # profiled batched calls
 PROFILE_PAD_CYCLES = 40_000_000         # ~20 ms spin at each profile edge
 BATCH_SEED = 0xBA7
 BATCH_MAX_GROWTH = 2.0                  # L=4 call's activities < 2x L=1's
+PROFILE_CHAINS = ("dvbt", "dvbt2", "dvbt2-bbc", "j83b", "papr")
+PROFILE_MAX_PCT = 105.0                 # of the roofline: more is a bad model
+PROFILE_FIR_FLOOR = 0.9                 # rrc_interpolate row / step 3's warm
+PROFILE_FULL_FLOOR = 0.95               # FULL row / steps 8-9's busy ms
+PROFILE_QUEUED = 3                      # calls queued for a row's device ms
+PROFILE_FIR_ROWS = ("rrc_interpolate", "FULL superblock")
+RATE_CASES = (
+    [(["dvbtrate", str(bw)], f"dvbtrate_{bw}.txt") for bw in (5, 6, 7, 8)]
+    + [(["dvbs2rate", *([] if o == "n" else ["-" + o]), r],
+        f"dvbs2rate_{o}_{r}.txt")
+       for o, r in (("n", "27500000"), ("s", "27500000"), ("x", "27500000"),
+                    ("sx", "27500000"), ("v", "27500000"),
+                    ("n", "31415926.5"), ("sx", "1000000"))]
+    + [(["atsc3rate", *a.split()], "atsc3rate_" + a.replace(" ", "_")
+        + ".txt")
+       for a in ("32 5 72 2 8 2 0 6 1 1 1 0 4 0",
+                 "8 3 100 1 10 3 0 0 0 2 3 2 2 1",
+                 "16 9 120 2 6 1 1 4 1 1 2 4 0 0 150",
+                 "32 10 60 1 2 0 0 8 1 5 7 3 1 0 10")])
 
 
 def seeded_ts(seed: int, n_bytes: int) -> np.ndarray:
@@ -1861,6 +1890,166 @@ def time_papr(dev) -> list[float]:
         iters=10) / 1e6 for _ in range(3)]
 
 
+def profile_stages(dev, card: str, fir_t: dict, serve_busy: dict) -> None:
+    """Step 12: ``utils/profile.py``'s chains on the card, TF32 off, one
+    chain at a time (DVB-T at the flagship, the others at the reference's
+    configs).  Each row must lie within PROFILE_MAX_PCT of the H100's
+    roofline, have a finite time and have run on the card: allocated there,
+    and device time per call > 0 with PROFILE_QUEUED more calls queued
+    behind a spin kernel, so no host gap enters (``_queued_ms``; the
+    profiler, asked per stage, lost most activities after the serving
+    profiles).  The FIR kernel must launch in
+    every call of the J.83B rows that run it and in no other row; the
+    ``rrc_interpolate`` row may be no faster than PROFILE_FIR_FLOOR of step
+    3's warm kernel, and each FULL row no faster than PROFILE_FULL_FLOOR
+    of the device-busy ms per block that steps 8-9 measured."""
+    from dtv_utils_torch.ops import fir
+    from dtv_utils_torch.utils import profile
+
+    real = profile.profile_fn
+    seen: list[tuple] = []
+
+    def checked(name, fn, args, n_variants=6):
+        before = fir.LAUNCHES
+        rep = real(name, fn, args, n_variants)
+        launches = fir.LAUNCHES - before
+        seen.append((rep, launches, n_variants, _queued_ms(
+            [functools.partial(fn, *args)] * PROFILE_QUEUED)))
+        return rep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bound_ms = max(fir_bounds_ms(FIR_SIZES[0]))
+    with _patched(profile, "profile_fn", checked):
+        for chain in PROFILE_CHAINS:
+            seen.clear()
+            if chain == "j83b":
+                fir.LAUNCHES = 0
+            t0 = time.perf_counter()
+            if chain == "dvbt":
+                reps = profile.dvbt_stages(dvbt_flagship(), device=dev)
+            else:
+                reps = profile.CHAINS[chain](device=dev)
+            if [r.name for r in reps] != [r.name for r, *_ in seen]:
+                raise AssertionError(f"{chain}: rows {[r.name for r in reps]}")
+            print(f"== profile {chain} ({time.perf_counter() - t0:.1f} s), "
+                  f"{_tf32()}, on {card} ==")
+            print(profile.format_table(reps))
+            for r, launches, n_var, device_ms in seen:
+                print(f"  {r.name:<26} temp {r.temp_bytes / 1e6:9.3f} MB, "
+                      f"device {device_ms:.4f} ms per queued call "
+                      f"({device_ms / r.ms:.3f} of the row's ms), FIR "
+                      f"launches {launches}")
+                if not (np.isfinite(r.ms) and r.ms > 0):
+                    raise AssertionError(f"{chain} {r.name}: ms {r.ms}")
+                if r.roofline_pct is None or r.roofline_pct > PROFILE_MAX_PCT:
+                    raise AssertionError(
+                        f"{chain} {r.name}: {r.roofline_pct} % of the "
+                        "roofline")
+                if not (device_ms > 0 and r.temp_bytes > 0):
+                    raise AssertionError(f"{chain} {r.name}: no device work")
+                runs_fir = chain == "j83b" and r.name in PROFILE_FIR_ROWS
+                if runs_fir and launches < n_var - 1 or \
+                        not runs_fir and launches:
+                    raise AssertionError(f"{chain} {r.name}: {launches} FIR "
+                                         f"launches for {n_var - 1} timed "
+                                         "calls")
+            if chain == "j83b":
+                rrc = next(r for r in reps if r.name == "rrc_interpolate")
+                if rrc.ms < PROFILE_FIR_FLOOR * fir_t["kernel_warm"]:
+                    raise AssertionError(
+                        f"rrc_interpolate row {rrc.ms:.5f} ms is faster "
+                        "than step 3's warm kernel "
+                        f"{fir_t['kernel_warm']:.5f}")
+                print(f"profile j83b rrc_interpolate: {rrc.ms:.5f} ms, "
+                      f"{bound_ms / rrc.ms:.3f} of the {bound_ms:.5f} ms "
+                      f"bound (step 3's kernel cold: "
+                      f"{bound_ms / fir_t['kernel_cold']:.3f}, warm "
+                      f"{fir_t['kernel_warm']:.5f} ms), {fir.LAUNCHES} FIR "
+                      f"launches in the chain")
+            if chain in serve_busy:
+                full = next(r for r in reps if r.name.startswith("FULL"))
+                ratio = full.ms / serve_busy[chain]
+                print(f"profile {chain} {full.name}: {full.ms:.4f} ms, "
+                      f"{ratio:.3f} x the {serve_busy[chain]:.4f} ms device "
+                      "busy per block of one-block serving (steps 8-9)")
+                if ratio < PROFILE_FULL_FLOOR:
+                    raise AssertionError(f"{chain} {full.name} is faster "
+                                         "than the card's busy time")
+
+
+def check_profile_cli(card: str) -> None:
+    """``dtv profile -j papr`` in a subprocess: one JSON row per stage on
+    stdout, each scored against the roofline."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "dtv_utils_torch.cli",
+                          "profile", "-j", "papr"], capture_output=True,
+                         text=True, timeout=600, cwd=ROOT)
+    if run.returncode:
+        raise AssertionError(f"dtv profile -j papr: {run.returncode}\n"
+                             f"{run.stderr[-2000:]}")
+    rows = [json.loads(ln) for ln in run.stdout.splitlines()
+            if ln.startswith("{")]
+    names = [r["metric"] for r in rows]
+    if names != ["profile.papr.pass1 (power+peaks+rails)",
+                 "profile.papr.pass2 (ccdf histogram)"] or any(
+                     r["roofline_pct"] is None for r in rows):
+        raise AssertionError(f"dtv profile -j papr printed {rows}")
+    for r in rows:
+        print(f"cli {r['metric']}: {r['value']} ms, {r['roofline_pct']} % "
+              f"of the roofline ({r['bound']}), tf32={r['tf32']}, on {card}")
+    print(f"dtv profile -j papr: {time.perf_counter() - t0:.1f} s")
+
+
+def check_rates_native() -> None:
+    """The rate oracles through the port's CLI, and the native analyzers
+    built by the port, against ``tests/golden`` byte for byte."""
+    import io
+
+    from dtv_utils_torch.analysis import native
+    from dtv_utils_torch.cli import main as cli
+
+    golden_dir = ROOT / "tests" / "golden"
+    for argv, golden in RATE_CASES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc or buf.getvalue().encode() != (golden_dir / golden).read_bytes():
+            raise AssertionError(f"dtv {' '.join(argv)}: exit {rc}, output "
+                                 f"differs from {golden}")
+    print(f"rates: {len(RATE_CASES)} dvbtrate/dvbs2rate/atsc3rate reports "
+          "equal their goldens")
+    t0 = time.perf_counter()
+    d = native.ensure_built()
+    print(f"native tools built in {time.perf_counter() - t0:.1f} s "
+          f"({d.relative_to(ROOT)})")
+    sys.path.insert(0, str(ROOT / "tests"))
+    import h264_gen
+    import l1_gen
+    import ts_gen
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = []
+        for name, make in sorted(l1_gen.SCENARIOS.items()):
+            f = Path(tmp, f"{name}.b64")
+            f.write_bytes(make())
+            cases.append(("l1dump", [str(f)], f"l1dump_{name}.txt"))
+        f = Path(tmp, "progressive_main.264")
+        f.write_bytes(h264_gen.make_stream(interlaced=False, profile=77))
+        cases.append(("flags264", [str(f)], "flags264_progressive_main.txt"))
+        f = Path(tmp, "in.ts")
+        f.write_bytes(ts_gen.make_ts())
+        cases.append(("xport", [str(f), "1", "1", "1"], "xport_basic.txt"))
+        for tool, args, golden in cases:
+            run = native.run(tool, args, capture_output=True, cwd=tmp,
+                             timeout=120)
+            if run.returncode or \
+                    run.stdout != (golden_dir / golden).read_bytes():
+                raise AssertionError(f"{tool} {args}: exit {run.returncode},"
+                                     f" output differs from {golden}")
+    print(f"native: {len(cases)} l1dump/flags264/xport outputs equal their "
+          "goldens")
+
+
 def _tf32() -> str:
     return f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
 
@@ -1981,7 +2170,8 @@ def main() -> int:
           f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each) on {card}")
     print(f"j83b one stream, {_tf32()}: {_repeats(sb_ms)} ms/superblock on "
           f"{card}")
-    busy_ms = profile_j83b(dev)["busy_ms"]
+    serve_busy = {"j83b": profile_j83b(dev)["busy_ms"]}
+    busy_ms = serve_busy["j83b"]
     print(f"j83b device busy share: {busy_ms / sorted(sb_ms)[1]:.3f} of one "
           f"stream's {sorted(sb_ms)[1]:.4f} ms/superblock, on {card}")
     for tf32 in (False, True):
@@ -1994,6 +2184,8 @@ def main() -> int:
         print(f"dvbt one stream, {_tf32()}: "
               f"{_repeats(sf_ms)} ms/superframe on {card}")
         busy_ms, _ = profile_dvbt(dev)
+        if not tf32:
+            serve_busy["dvbt"] = busy_ms
         sf4_ms = (dvbt_flagship().samples_per_superframe
                   / (sorted(msps)[1] * 1e3))
         print(f"dvbt device busy share, {_tf32()}: "
@@ -2015,6 +2207,7 @@ def main() -> int:
     print(f"dvbt2 bbc one stream, {_tf32()}: {_repeats(fr_ms, '.4f')} "
           f"ms/frame (air time {air_ms:.3f} ms) on {card}")
     busy_ms, _ = profile_dvbt2(dev)
+    serve_busy["dvbt2-bbc"] = busy_ms
     fr4_ms = spf / (sorted(msps)[1] * 1e3)
     print(f"dvbt2 device busy share, {_tf32()}: "
           f"{busy_ms / sorted(fr_ms)[1]:.3f} of one stream's "
@@ -2046,6 +2239,18 @@ def main() -> int:
     gsps = time_papr(dev)
     print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
           f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")
+
+    # 12. the stage profiler (utils/profile.py) on every chain, TF32 off:
+    # rows within the H100's roofline and run on the card, the FIR kernel
+    # in the J.83B rows that run it, FULL rows no faster than steps 8-9's
+    # device time per block; `dtv profile -j papr`; then the rate oracles
+    # and the native analyzers (built by the port) against their goldens
+    t_prof = time.perf_counter()
+    profile_stages(dev, card, t, serve_busy)
+    check_profile_cli(card)
+    check_rates_native()
+    print(f"profiler, rates and native phase: "
+          f"{time.perf_counter() - t_prof:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fir_interp2", "route": "cuda",

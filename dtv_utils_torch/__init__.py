@@ -8,8 +8,13 @@ to the same outputs.  This package imports torch and numpy only, never JAX.
 Idiom: plain functions on tensors, run eagerly; stream state is a
 ``@dataclass`` of tensors; public entry points take an explicit ``device``
 (see :func:`resolve_device` — a CUDA request never falls back to the CPU).
-The only hand-written kernel so far is the J.83B RRC interpolator
-(``csrc/fir_interp2.cu``, wrapped by ``ops/fir.py``).
+Every module of the JAX package has its counterpart here, but for the TPU
+workarounds.  The one hand-written kernel is the J.83B RRC interpolator
+(``csrc/fir_interp2.cu``, wrapped by ``ops/fir.py``), the port of the JAX
+package's one Pallas kernel.  The rate oracles are copies, the native
+stream analyzers are the repository's C++ under ``native/``, built by
+``analysis/native.py``, and ``utils/profile.py`` scores each chain stage
+against the card's roofline.
 """
 
 from dtv_utils_torch.utils.device import resolve_device

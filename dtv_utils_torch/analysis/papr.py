@@ -22,7 +22,7 @@ import sys
 import numpy as np
 import torch
 
-from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.device import resolve_device, split_device_arg
 
 _STAT_KEYS = ("peak", "real_pos", "real_neg", "imag_pos", "imag_neg")
 _REF_CHUNK_FLOATS = 16384          # papr.c's CHUNK_SIZE
@@ -236,22 +236,8 @@ def report(path: str, graph: bool, chunk_complex: int = DEFAULT_CHUNK, *,
     return format_report(stats, counts, graph)
 
 
-def _split_device(argv: list[str]) -> tuple[list[str], str]:
-    """Take ``--device DEV`` / ``--device=DEV`` out of argv (default cuda)."""
-    rest, device = [], "cuda"
-    it = iter(argv)
-    for a in it:
-        if a == "--device":
-            device = next(it, "")
-        elif a.startswith("--device="):
-            device = a.split("=", 1)[1]
-        else:
-            rest.append(a)
-    return rest, device
-
-
 def cli(argv: list[str]) -> int:
-    argv, device = _split_device(argv)
+    argv, device = split_device_arg(argv)
     graph = False
     if len(argv) not in (1, 2):
         print("usage: papr -g <infile> [--device cuda|cpu]\nOptions:\n"

@@ -32,6 +32,22 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+
+def split_device_arg(argv: list[str]) -> tuple[list[str], str]:
+    """Take ``--device DEV`` / ``--device=DEV`` out of a CLI's argv
+    (default ``cuda``)."""
+    rest, device = [], "cuda"
+    it = iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it, "")
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, device
+
+
 # The memory policy of the stages that run in passes: a pass takes as many
 # units of work as ``working_bytes`` holds at the stage's bytes per unit.
 # Each size is the device peak per unit (temporaries and output above the
