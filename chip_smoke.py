@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root on a machine with an H100 (sm_90a) and the CUDA
-toolkit: ``python3 chip_smoke.py``.  It builds the port's CUDA kernel from
-``dtv_utils_torch/csrc`` and holds it against its plain PyTorch version,
-then drives each ported path on the card at its full size and checks it
-against a golden made from the JAX reference:
+toolkit: ``python3 chip_smoke.py``.  It builds the port's CUDA kernels from
+``dtv_utils_torch/csrc`` (one ``nvcc`` per source, all started together)
+and holds each against its plain PyTorch version, then drives each ported
+path on the card at its full size and checks it against a golden made from
+the JAX reference:
 
 * J.83B: ``modulate_stream`` and the ``qam-mod`` CLI against
   ``tests/golden/j83b_torch_smoke.json`` (``tests/test_torch_j83b.py``);
@@ -18,8 +19,19 @@ against a golden made from the JAX reference:
   the seeded stand-in tables' digests first, then ``modulate_stream``'s
   grids, state and IQ, and the ``dvbt2-mod`` CLI with ``--tables``, against
   ``tests/golden/dvbt2_torch_smoke.json`` (``tests/test_torch_dvbt2.py``);
+* the decoder kernels against their plain versions on the card, bit for
+  bit, at full width on the pairs and LLRs the receivers make: the Viterbi
+  ACS and traceback (``csrc/viterbi.cu``) at K=7 on the flagship's 2
+  superframes at 20.0 dB and at K=5 on J.83B's 2 superblocks at 27 dB
+  (packed decisions, final metrics, bits), the min-sum check and variable
+  kernels (``csrc/ldpc_minsum.cu``) on one BBC frame's 202 soft FEC blocks
+  at 23.0 dB and on pure noise (totals and messages after the first and
+  the 30th iteration, hard bits, ``ok``); each timed cold and warm beside
+  its bound and its plain version;
 * the DVB-T and J.83B receivers on the IQ above, clean and through AWGN at
-  20.0 and 27 dB: the exact input TS and every health flag, the card
+  20.0 and 27 dB, with every kernel of the path launched (the counts set
+  to 0 before each receiver's run and read after it): the exact input TS
+  and every health flag, the card
   against the port's CPU stage by stage (Viterbi, J.83B front and trellis
   decode, RS for both fields), no host sync inside the decoders, and
   ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``; one ACS pass
@@ -30,7 +42,8 @@ against a golden made from the JAX reference:
 * the DVB-T2 receiver on the BBC frames above, hard and soft (clean and
   at RX_DVBT2_SNR_DB), and on 2 blade frames soft at 14.5 dB: the exact TS
   with every flag and the signalled L1 fields, the card against the CPU
-  (hard words, the min-sum decoder, the syndrome), no host sync in the
+  (hard words, the min-sum decoder, the syndrome), the min-sum kernels
+  launched in the soft runs, no host sync in the
   decoder or the frame decode, and ``dvbt2-rx``;
 * batched streaming (``parallel/stream.py``): DVB-T flagship calls of 4
   and 8 superframes, DVB-T2 BBC and J.83B calls of 4 frames / superblocks
@@ -127,7 +140,7 @@ RX_NOISE_SEED = 0x5EED                  # host default_rng for the AWGN
 RX_VITERBI_BLOCKS = 64                  # card-vs-CPU Viterbi cut, blocks
 RX_J83B_GROUPS = 50_000                 # card-vs-CPU J.83B cut, groups
 RX_SUPERFRAMES = (2, 8)                 # DVB-T receive calls timed
-RX_DVBT_ACTIVITIES = 42_734             # device activities, 2-superframe call
+RX_DVBT_ACTIVITIES = 823                # device activities, 2-superframe call
 RX_REPEATS = 3
 RX_CAP_BYTES = 12e9                     # set_per_process_memory_fraction cap
 RX_CAP_SUPERFRAMES = (12, 24)           # DVB-T calls decoded under the cap
@@ -135,6 +148,11 @@ RX_SLOPE_WORKING_BYTES = 4 << 30        # pinned for the memory slope
 RX_DVBT2_SNR_DB = 23.0                  # BBC 256-QAM 2/3 soft: 2 dB of margin
 RX_BLADE_SNR_DB = 14.5                  # the reference's 64-QAM 2/3 point
 RX_LDPC_BLOCKS = 8                      # card-vs-CPU LDPC cut, FEC blocks
+DEC_TIMED = 6                           # decoder-kernel launches per timing
+DEC_SETS = 2                            # input sets rotated when cold
+DEC_NOISE_SEED = 0xDEC                  # the LDPC's pure-noise LLRs
+LDPC_ITERATIONS = 30                    # rx.dvbt2's soft decode
+SPIN_CYCLES_PER_MS = 2e6                # torch.cuda._sleep, ~2 GHz SM clock
 HOST_PROBE_LAUNCHES = 20_000            # tiny launches per host probe
 BATCH_DVBT = (4, 8)                     # superframes per batched DVB-T call
 BATCH_L = 4                             # T2 frames / superblocks per call
@@ -348,11 +366,14 @@ def fir_bounds_ms(n: int) -> tuple[float, float]:
 def _queued_ms(calls) -> float:
     """Mean device ms per call of ``calls``, launched back to back behind a
     spin kernel long enough for the host to queue them all, so that no host
-    gap enters the window.  Each call is made once untimed first."""
+    gap enters the window.  Each call is made once untimed first; the spin
+    starts at 1.5 times the host time of that round, or ~20 ms."""
+    t0 = time.perf_counter()
     for c in calls:
         c()
+    warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    spin = 40_000_000                               # ~20 ms of clock cycles
+    spin = max(40_000_000, int(1.5 * warm_ms * SPIN_CYCLES_PER_MS))
     for attempt in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
@@ -883,6 +904,14 @@ def _equal_on(label: str, card, cpu) -> None:
             raise AssertionError(f"{label}: the card differs from the CPU")
 
 
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over two tensors of one shape, any dtype; equal entries,
+    infinities included, count 0."""
+    a, b = a.double(), b.to(a.device).double()
+    d = torch.where(a == b, 0.0, (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
 def check_rx_stages(dev, dvbt_noisy: np.ndarray, j83b_iq: np.ndarray,
                     j83b_noisy: np.ndarray) -> None:
     """Card against the port's CPU on identical inputs, stage by stage, and
@@ -988,6 +1017,21 @@ def _counted(module, name: str):
 
     with _patched(module, name, counting):
         yield n
+
+
+@contextlib.contextmanager
+def _main_path(store: dict, label: str, counts: dict):
+    """Set the kernel launch ``counts`` to 0, run the block (a main-path
+    run), store the counts it made under ``label``; fail if a kernel of
+    the path was not launched."""
+    for key in counts:
+        counts[key] = 0
+    yield
+    store[label] = dict(counts)
+    if not all(store[label].values()):
+        raise AssertionError(f"{label}: a kernel of the path was not "
+                             f"launched: {store[label]}")
+    print(f"{label} kernel launches: {store[label]}")
 
 
 def _wall_s(fn, repeats: int = RX_REPEATS) -> list[float]:
@@ -1188,21 +1232,32 @@ def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
 
 
 def _range_activities(events, acts, name: str) -> list:
-    """Device activities launched inside the profiler ranges ``name``."""
+    """Device activities launched inside the profiler ranges ``name``: by
+    a host op inside them, or by a runtime launch made inside them (a
+    kernel launched through ctypes has no host op)."""
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
              if e.get("cat") == "user_annotation" and e["name"] == name]
+
+    def inside(e) -> bool:
+        return any(a <= e["ts"] < b for a, b in spans)
+
     ids = {e["args"].get("External id") for e in events
-           if e.get("cat") == "cpu_op"
-           and any(a <= e["ts"] < b for a, b in spans)}
-    return [e for e in acts if e.get("args", {}).get("External id") in ids]
+           if e.get("cat") == "cpu_op" and inside(e)} - {None}
+    launches = {e["args"].get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and inside(e)} - {None}
+    return [e for e in acts
+            if e.get("args", {}).get("External id") in ids
+            or e.get("args", {}).get("correlation") in launches]
 
 
 def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
     """torch.profiler over one DVB-T receive call (2 superframes): device
     busy time and share of the unprofiled call, device activities per call,
-    the top ops, and the share of device time in the Viterbi's two trellis
-    loops (kernels launched inside its ``viterbi_acs`` and
-    ``viterbi_traceback`` ranges)."""
+    the top ops, and the share of device time in the Viterbi's ACS and
+    traceback kernels (launched inside its ``viterbi_acs`` and
+    ``viterbi_traceback`` ranges, one launch each per pass: fails on
+    another count)."""
     from torch.profiler import ProfilerActivity, profile
 
     from dtv_utils_torch.rx import dvbt as rxd
@@ -1224,11 +1279,15 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
     for name in ("viterbi_acs", "viterbi_traceback"):
         inside = _range_activities(events, acts, name)
         got[name] = (len(inside), sum(e["dur"] for e in inside))
+        if len(inside) != 1:
+            raise AssertionError(f"dvbt rx: {len(inside)} device "
+                                 f"activities in {name}, not the kernel's "
+                                 "one launch")
     loop_n = sum(n for n, _ in got.values())
     loop_us = sum(us for _, us in got.values())
     print(f"dvbt rx profile (1 call, 2 superframes): {len(acts)} device "
           f"activities, busy {busy_ms:.3f} ms = {busy_ms / 1e3 / call_s:.3f} "
-          f"of the unprofiled call's {call_s:.4f} s; trellis loops "
+          f"of the unprofiled call's {call_s:.4f} s; Viterbi kernels "
           f"{loop_n} activities ({loop_n / len(acts):.3f}), "
           f"{loop_us / 1e3:.3f} ms = {loop_us / total_us:.3f} of device "
           f"time (ACS {got['viterbi_acs'][1] / 1e3:.3f} ms over "
@@ -1398,7 +1457,9 @@ def time_dvbt2_rx(dev, card: str, iq: np.ndarray) -> dict[str, float]:
 def profile_dvbt2_rx(dev, card: str, iq: np.ndarray, call_s: float) -> None:
     """torch.profiler over one soft DVB-T2 BBC receive call (2 frames):
     device activities per frame, busy share of the unprofiled call, the
-    ``ldpc_minsum`` range's share of device time, and the top ops."""
+    ``ldpc_minsum`` range's share of device time (2 · LDPC_ITERATIONS + 1
+    kernel launches per frame: fails on another count), and the top
+    ops."""
     from torch.profiler import ProfilerActivity, profile
 
     from dtv_utils_torch.rx import dvbt2 as rx2
@@ -1416,6 +1477,10 @@ def profile_dvbt2_rx(dev, card: str, iq: np.ndarray, call_s: float) -> None:
     events, acts, busy_us, total_us, rows = _trace_summary(prof)
     ldpc = _range_activities(events, acts, "ldpc_minsum")
     ldpc_us = sum(e["dur"] for e in ldpc)
+    if len(ldpc) != (2 * LDPC_ITERATIONS + 1) * n_fr:
+        raise AssertionError(f"dvbt2 rx: {len(ldpc)} device activities in "
+                             f"ldpc_minsum over {n_fr} frames, not the "
+                             f"kernels' {2 * LDPC_ITERATIONS + 1} per frame")
     print(f"dvbt2 rx bbc soft profile (1 call, {n_fr} frames): {len(acts)} "
           f"device activities ({len(acts) / n_fr:.1f} per frame), busy "
           f"{busy_us / 1e3:.3f} ms = {busy_us / 1e6 / call_s:.3f} of the "
@@ -1425,6 +1490,248 @@ def profile_dvbt2_rx(dev, card: str, iq: np.ndarray, call_s: float) -> None:
     for self_us, count, key in rows[:10]:
         print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total_us:5.1f} % "
               f"{count:6d} calls  {key[:60]}")
+
+
+def _captured_acs(fn) -> list[tuple]:
+    """Run ``fn()`` and return the arguments (pairs, k, g1, g2) of each of
+    its calls to ``ops.viterbi._acs``: the shapes the main path gives the
+    ACS kernel."""
+    from dtv_utils_torch.ops import viterbi
+
+    seen, acs = [], viterbi._acs
+
+    def keep(pairs, *code):
+        seen.append((pairs, *code))
+        return acs(pairs, *code)
+
+    with _patched(viterbi, "_acs", keep):
+        fn()
+    return seen
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least ms on an H100 SXM for ``nbytes`` moved and ``ops`` fp32
+    operations, and which of the two sets it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def viterbi_bounds(L: int, B: int, S: int) -> dict[str, tuple[float, str]]:
+    """ACS: pairs read, packed decisions and final metrics written; per
+    step and block 2 (s, d) + 2S (cand) + S (compare) + S (select) + S - 1
+    (max) + S (subtract) fp32 operations.  Traceback: decisions and final
+    metrics read, bits written; S - 1 compares per block (the walk is
+    integer work)."""
+    return {"viterbi_acs": _bound(L * B * 8 + L * B * S // 8 + B * S * 4,
+                                  L * B * (6 * S + 1)),
+            "viterbi_traceback": _bound(L * B * S // 8 + B * S * 4 + L * B,
+                                        B * (S - 1))}
+
+
+def ldpc_bounds(batch: int, nldpc: int,
+                n_edges: int) -> dict[str, tuple[float, str]]:
+    """The work min-sum needs, over the code's real edges (the kernels'
+    padding of each check to D slots is their own overhead).  Check
+    kernel: totals read once, each edge's message read and written, its
+    slot read; per edge a subtract, |x|, two compares, a min, a compare, a
+    select and a product.  Variable kernel: each edge's message and its
+    slot, llr read, totals written; one add per edge."""
+    return {"ldpc_check": _bound(
+                4 * (nldpc + 1) * batch + 2 * 4 * n_edges * batch
+                + 8 * n_edges, 8 * n_edges * batch),
+            "ldpc_variable": _bound(
+                4 * n_edges * batch + 4 * n_edges + 2 * 4 * nldpc * batch,
+                n_edges * batch)}
+
+
+def _span_ms(fn) -> float:
+    """Device ms between CUDA events around one call of ``fn`` (made once
+    untimed first), host gaps included: for a plain version whose
+    thousands of launches fill the launch queue, which no spin kernel
+    ahead of them can hide."""
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def _timed(kernel_sets: list, plain, library=None) -> dict:
+    """Device ms per call between CUDA events: the kernel cold (DEC_TIMED
+    calls rotating over distinct input sets) and warm (one set), and where
+    one exists the one-call library yardstick, each queued behind a spin
+    (``_queued_ms``); the plain version over one call (``_span_ms``).
+    ``kernel_sets`` holds one zero-argument call per set."""
+    t = {"cold": _queued_ms([kernel_sets[i % len(kernel_sets)]
+                             for i in range(DEC_TIMED)]),
+         "warm": _queued_ms([kernel_sets[0]] * DEC_TIMED),
+         "plain": _span_ms(plain)}
+    t["library"] = (_queued_ms([library] * DEC_TIMED) if library else None)
+    return t
+
+
+def _report(name: str, label: str, t: dict, bound: tuple[float, str],
+            card: str) -> None:
+    lib = (f"; library {t['library']:.5f} ms" if t["library"] is not None
+           else "")
+    print(f"{name} ({label}): cold {t['cold']:.5f} ms ({bound[0] / t['cold']:.3f} "
+          f"of the {bound[0]:.5f} ms bound, {bound[1]}), warm "
+          f"{t['warm']:.5f} ms; plain version {t['plain']:.3f} ms{lib}; "
+          f"on {card}")
+
+
+def check_viterbi_kernels(label: str, args: tuple, card: str) -> dict:
+    """The ACS and traceback kernels against their plain versions on the
+    card, on the main path's pairs: packed decisions, final metrics and
+    bits bit for bit; then their times beside their bounds."""
+    from dtv_utils_torch.ops import viterbi
+
+    pairs, k, g1, g2 = args
+    L, B, _ = pairs.shape
+    S = 1 << (k - 1)
+    packed, final = viterbi._acs(pairs, k, g1, g2)
+    decs, want_final = viterbi.acs_reference(pairs, k, g1, g2)
+    want_packed = viterbi.pack_decisions(decs)
+    del decs
+    _equal_on(f"{label} ACS packed decisions", packed.cpu(),
+              want_packed.cpu())
+    _equal_on(f"{label} ACS final metrics", final.cpu(), want_final.cpu())
+    bits = viterbi._traceback(packed, final, k)
+    want_bits = viterbi.traceback_reference(packed, final, k)
+    _equal_on(f"{label} traceback bits", bits.cpu(), want_bits.cpu())
+    print(f"viterbi kernels, {label} (K={k}, L={L}, B={B}): packed "
+          f"decisions ({packed.numel()} bytes, {int(packed.bool().sum())} "
+          f"non-zero), final metrics and bits equal the plain versions' on "
+          f"the card")
+    err = {"viterbi_acs": max(_max_abs_diff(packed, want_packed),
+                              _max_abs_diff(final, want_final)),
+           "viterbi_traceback": _max_abs_diff(bits, want_bits)}
+    del want_packed
+    pair_sets = [pairs] + [pairs.clone() for _ in range(DEC_SETS - 1)]
+    tb_sets = [(packed, final)] + [(packed.clone(), final.clone())
+                                   for _ in range(DEC_SETS - 1)]
+    bounds = viterbi_bounds(L, B, S)
+    out = {}
+    for name, sets, plain in (
+            ("viterbi_acs",
+             [functools.partial(viterbi._acs, p, k, g1, g2)
+              for p in pair_sets],
+             lambda: viterbi.acs_reference(pairs, k, g1, g2)),
+            ("viterbi_traceback",
+             [functools.partial(viterbi._traceback, d, f, k)
+              for d, f in tb_sets],
+             lambda: viterbi.traceback_reference(packed, final, k))):
+        t = _timed(sets, plain)
+        _report(name, label, t, bounds[name], card)
+        out[name] = dict(t, bound=bounds[name], max_abs_err=err[name],
+                         shape=dict(L=L, B=B, K=k))
+    return out
+
+
+def check_ldpc_kernels(label: str, llr: torch.Tensor, card: str) -> dict:
+    """The check and variable kernels against their plain versions on the
+    card, on one BBC frame's LLRs [202, nldpc]: totals and c2v after the
+    first and the last of LDPC_ITERATIONS iterations, hard bits and ok;
+    then their times beside their bounds."""
+    from dtv_utils_torch.ops import ldpc_decode as LD
+
+    cfg = dvbt2_bbc()
+    dg, llr_t, totals, c2v = LD._start(cfg, llr)
+    p_totals, p_c2v = totals.clone(), c2v.clone()
+    for it in range(1, LDPC_ITERATIONS + 1):
+        LD._variable_totals(dg, llr_t, c2v, totals)
+        c2v = LD._check_update(dg, totals, c2v)
+        p_c2v = LD.minsum_iteration_reference(dg, llr_t, p_c2v, p_totals)
+        if it in (1, LDPC_ITERATIONS):
+            _equal_on(f"{label} totals, iteration {it}", totals.cpu(),
+                      p_totals.cpu())
+            _equal_on(f"{label} c2v, iteration {it}", c2v.cpu(),
+                      p_c2v.cpu())
+    err = max(_max_abs_diff(c2v, p_c2v), _max_abs_diff(totals, p_totals))
+    LD._variable_totals(dg, llr_t, c2v, totals)
+    LD.variable_totals_reference(dg, llr_t, p_c2v, p_totals)
+    hard, ok = LD._finish(cfg, totals)
+    _equal_on(f"{label} hard bits and ok", (hard, ok),
+              tuple(x.cpu() for x in LD._finish(cfg, p_totals)))
+    _equal_on(f"{label} decode", LD.decode(cfg, llr, LDPC_ITERATIONS),
+              (hard.cpu(), ok.cpu()))
+    print(f"ldpc kernels, {label} ({llr.shape[0]} FEC blocks, D={dg['D']}): "
+          f"totals and c2v after iterations 1 and {LDPC_ITERATIONS}, hard "
+          f"bits and ok ({int(ok.sum())} converged) equal the plain "
+          "versions' on the card")
+    n_par, D, batch = c2v.shape
+    g = LD._graph(cfg)
+    bounds = ldpc_bounds(batch, cfg.nldpc, g["n_edges"])
+    c2v_sets = [c2v] + [c2v.clone() for _ in range(DEC_SETS - 1)]
+    tot_sets = [totals] + [totals.clone() for _ in range(DEC_SETS - 1)]
+    acc = totals.clone()
+    out = {}
+    for name, sets, plain, library in (
+            ("ldpc_check",
+             [functools.partial(LD._check_update, dg, tt, cc)
+              for tt, cc in zip(tot_sets, c2v_sets)],
+             lambda: LD.check_update_reference(dg, totals, c2v), None),
+            ("ldpc_variable",
+             [functools.partial(LD._variable_totals, dg, llr_t, cc, tt)
+              for tt, cc in zip(tot_sets, c2v_sets)],
+             lambda: LD.variable_totals_reference(dg, llr_t, c2v, acc),
+             lambda: acc.index_add_(0, dg["slot_var"],
+                                    c2v.view(-1, batch)))):
+        t = _timed(sets, plain, library)
+        _report(name, label, t, bounds[name], card)
+        out[name] = dict(t, bound=bounds[name], max_abs_err=err,
+                         shape=dict(n_par=n_par, D=D, batch=batch))
+    return out
+
+
+def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
+                          j83b_iq: np.ndarray, dvbt2_iq: np.ndarray) -> dict:
+    """Each decoder kernel against its plain version on the card at full
+    width, bit for bit, and timed: the Viterbi on the flagship's 2
+    superframes at RX_DVBT_SNR_DB (K=7) and on J.83B's 2 superblocks at
+    RX_J83B_SNR_DB (K=5), the pairs the receivers hand the ACS; the
+    min-sum kernels on one BBC frame's 202 soft blocks at RX_DVBT2_SNR_DB
+    and on pure noise.  Returns the timings by kernel and case."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.rx import dvbt2 as rx2
+    from dtv_utils_torch.rx import j83b as rxq
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    cfg = dvbt_flagship()
+    noisy = torch.from_numpy(awgn(dvbt_iq, RX_DVBT_SNR_DB,
+                                  RX_NOISE_SEED)).to(dev)
+    (dvbt_args,) = _captured_acs(
+        lambda: rxd.demodulate_stream(cfg, noisy, device=dev))
+    del noisy
+    res = {"dvbt": check_viterbi_kernels("dvbt flagship 2 superframes",
+                                         dvbt_args, card)}
+    del dvbt_args
+    jnoisy = torch.from_numpy(awgn(j83b_iq, RX_J83B_SNR_DB,
+                                   RX_NOISE_SEED)).to(dev)
+    (j83b_args,) = _captured_acs(
+        lambda: rxq.trellis_decode(rxq.front(J83bConfig(), jnoisy)))
+    res["j83b"] = check_viterbi_kernels("j83b 2 superblocks", j83b_args,
+                                        card)
+    del j83b_args, jnoisy
+    bbc = dvbt2_bbc()
+    spf = t2.samples_per_frame(bbc)
+    body = awgn(dvbt2_iq, RX_DVBT2_SNR_DB, RX_NOISE_SEED)[2048:spf]
+    _, cells = rx2._cells(bbc, torch.from_numpy(body).to(dev))
+    llr = rx2.soft_llrs(bbc, cells)
+    g = torch.Generator(device=dev).manual_seed(DEC_NOISE_SEED)
+    res["dvbt2_awgn"] = check_ldpc_kernels(
+        f"bbc frame at {RX_DVBT2_SNR_DB} dB", llr, card)
+    res["dvbt2_noise"] = check_ldpc_kernels(
+        "bbc frame of pure noise", torch.randn(llr.shape, generator=g,
+                                               device=dev), card)
+    torch.cuda.empty_cache()
+    return res
 
 
 def _serve(dev, fn, init_state, block_bytes: int,
@@ -1516,6 +1823,15 @@ def _trace_summary(prof):
                           getattr(ev, "self_cuda_time_total", 0.0))
         if ev.device_type == DeviceType.CPU and self_us > 0:
             rows.append((self_us, ev.count, ev.key))
+    # kernels no host op launched (the port's own, through ctypes), by name
+    op_ids = {e["args"].get("External id") for e in events
+              if e.get("cat") == "cpu_op"}
+    bare: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
+    for e in acts:
+        if e.get("args", {}).get("External id") not in op_ids:
+            bare[e["name"]][0] += e["dur"]
+            bare[e["name"]][1] += 1
+    rows += [(us, n, name) for name, (us, n) in bare.items()]
     return (events, acts, busy_us, sum(e["dur"] for e in acts),
             sorted(rows, reverse=True))
 
@@ -2138,20 +2454,34 @@ def main() -> int:
     check_dvbt2_papr(dev, dvbt2_golden)
     check_dvbt2_cli(dvbt2_golden, dvbt2_iq, "cuda")
 
+    # 6b. the decoder kernels (Viterbi ACS and traceback, K=7 and K=5; the
+    # min-sum check and variable kernels) against their plain versions on
+    # the card at full width, bit for bit, and their times beside their
+    # bounds
+    t_dec = time.perf_counter()
+    dec = check_decoder_kernels(dev, card, dvbt_iq, iq, dvbt2_iq)
+    print(f"decoder kernel phase: {time.perf_counter() - t_dec:.1f} s")
+
     # 7. the receivers: loop-back of the IQ above, clean and through AWGN,
-    # the card against the port's CPU stage by stage, the CLIs, receive
-    # throughput and profiles: DVB-T and J.83B, a long DVB-T call under a
-    # memory cap, then DVB-T2 (hard and soft, BBC and blade)
+    # each with its kernels' launches counted, the card against the port's
+    # CPU stage by stage, the CLIs, receive throughput and profiles: DVB-T
+    # and J.83B, a long DVB-T call under a memory cap, then DVB-T2 (hard
+    # and soft, BBC and blade)
+    from dtv_utils_torch.ops import ldpc_decode, viterbi
     t_rx = time.perf_counter()
-    dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
-    j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
+    rx_launches: dict[str, dict] = {}
+    with _main_path(rx_launches, "dvbt rx", viterbi.LAUNCHES):
+        dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
+    with _main_path(rx_launches, "j83b rx", viterbi.LAUNCHES):
+        j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
     check_rx_stages(dev, dvbt_noisy, iq, j83b_noisy)
     _rx_cli("dvbt-rx", dvbt_iq, dvbt_rx.ts, "cuda")
     _rx_cli("qam-rx", iq, j83b_rx.ts, "cuda")
     call_s = time_rx(dev, card, dvbt_golden, dvbt_iq, iq)
     profile_dvbt_rx(dev, card, dvbt_iq, call_s)
     check_dvbt_rx_capped(dev, card, dvbt_golden)
-    dvbt2_rx, dvbt2_noisy = check_dvbt2_rx(dev, dvbt2_golden, dvbt2_iq)
+    with _main_path(rx_launches, "dvbt2 rx", ldpc_decode.LAUNCHES):
+        dvbt2_rx, dvbt2_noisy = check_dvbt2_rx(dev, dvbt2_golden, dvbt2_iq)
     check_dvbt2_stages(dev, dvbt2_iq, dvbt2_noisy)
     _rx_cli("dvbt2-rx", dvbt2_iq, dvbt2_rx.ts, "cuda", ["--profile", "bbc"])
     t2_s = time_dvbt2_rx(dev, card, dvbt2_iq)
@@ -2252,7 +2582,7 @@ def main() -> int:
     print(f"profiler, rates and native phase: "
           f"{time.perf_counter() - t_prof:.1f} s")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fir_interp2", "route": "cuda",
         "source": "dtv_utils_torch/csrc/fir_interp2.cu",
         "replaces": "dtv_utils_tpu/ops/fir.py:66",
@@ -2265,7 +2595,31 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bound_share_cold": bound_ms / t["kernel_cold"],
         "library_ms": t["library_cold"],
-        "library_warm_ms": t["library_warm"]}]}))
+        "library_warm_ms": t["library_warm"]}]
+    for name, source, replaces, case, runs, extra in (
+            ("viterbi_acs", "viterbi.cu", "viterbi.py:153", "dvbt",
+             ("dvbt rx", "j83b rx"), "j83b"),
+            ("viterbi_traceback", "viterbi.cu", "viterbi.py:173", "dvbt",
+             ("dvbt rx", "j83b rx"), "j83b"),
+            ("ldpc_check", "ldpc_minsum.cu", "ldpc_decode.py:112",
+             "dvbt2_awgn", ("dvbt2 rx",), "dvbt2_noise"),
+            ("ldpc_variable", "ldpc_minsum.cu", "ldpc_decode.py:113",
+             "dvbt2_awgn", ("dvbt2 rx",), "dvbt2_noise")):
+        m, x = dec[case][name], dec[extra][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"dtv_utils_torch/csrc/{source}",
+            "replaces": f"dtv_utils_tpu/ops/{replaces}",
+            "launches": sum(rx_launches[r][name] for r in runs),
+            "launches_by_run": {r: rx_launches[r][name] for r in runs},
+            "max_abs_err": max(m["max_abs_err"], x["max_abs_err"]),
+            "ms": m["cold"], "cold_ms": m["cold"], "warm_ms": m["warm"],
+            "plain_ms": m["plain"], "bound_ms": m["bound"][0],
+            "bound_by": m["bound"][1], "library_ms": m["library"],
+            "shape": m["shape"], extra: {
+                k: x[k] for k in ("cold", "warm", "plain", "library",
+                                  "shape")} | {"bound_ms": x["bound"][0]}})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  No PyTorch header
-is included, so the build takes seconds rather than minutes.  The library
-lands in ``build/torch_kernels/`` at the repository root, named by a hash of
-the sources and flags: an edit to a source rebuilds it, an unchanged tree
-reuses it.  ``-Xptxas -v`` makes ptxas report each kernel's registers,
-shared memory and spills; that report is kept beside the library
-(``build_log``).  Nothing here runs at import time; the first CUDA call
-builds.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together in a temporary directory, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  No
+PyTorch header is included, so the build takes seconds rather than
+minutes.  The library lands in ``build/torch_kernels/`` at the repository
+root, named by a hash of the sources and flags: an edit to a source
+rebuilds it, an unchanged tree reuses it.  ``-Xptxas -v`` makes ptxas
+report each kernel's registers, shared memory and spills; that report,
+with each ``nvcc``'s seconds, is kept beside the library (``build_log``).
+Nothing here runs at import time; the first CUDA call builds.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -60,6 +66,19 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _nvcc_run(cmd: list[str]) -> str:
+    """Run one nvcc command and return its output, led by the file it
+    made and the seconds it took; raise if it fails."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    made = Path(cmd[cmd.index("-o") + 1]).name
+    return (f"nvcc -o {made}: {time.perf_counter() - t0:.2f} s\n"
+            f"{res.stdout}{res.stderr}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build the kernels if their library is missing, load it, declare the
@@ -67,18 +86,50 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
+        nvcc, srcs = _nvcc(), sorted(CSRC.glob("*.cu"))
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [f"{tmp}/{src.stem}.o" for src in srcs]
+            with ThreadPoolExecutor(len(srcs)) as pool:
+                log = "".join(pool.map(_nvcc_run, (
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                    for src, o in zip(srcs, objs))))
+            lib_tmp = f"{tmp}/{out.name}"
+            log += _nvcc_run([nvcc, *NVCC_FLAGS, "-o", lib_tmp, *objs])
+            out.with_suffix(".log").write_text(log)
+            os.replace(lib_tmp, out)
     lib = ctypes.CDLL(str(out))
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.fir_interp2_split_launch.argtypes = [vp, ll, vp, ll, vp, ll, ll,
-                                             vp, vp]
-    lib.fir_interp2_split_launch.restype = ctypes.c_int
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, args in (
+            ("fir_interp2_split_launch", [vp, ll, vp, ll, vp, ll, ll, vp, vp]),
+            ("viterbi_acs_launch", [i, vp, ll, ll, i, i, vp, vp, vp]),
+            ("viterbi_traceback_launch", [i, vp, vp, ll, ll, vp, vp]),
+            ("ldpc_check_launch", [vp, vp, vp, ll, ll, ll, vp]),
+            ("ldpc_variable_launch", [vp, vp, vp, ll, ll, ll, vp, vp])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """The route of a kernel wrapper: True for a CUDA tensor (launch the
+    kernel), False for a CPU one (take the plain version); any other
+    device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's C launcher ``name`` with ``args`` and the current
+    stream of ``device`` (a CUDA ``torch.device``) as the last argument;
+    raise if it returns a CUDA error.  The build happens at the first
+    call."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dtv_utils_torch.ops import _build
+
 NTAPS = 100
 HIST = NTAPS // 2 - 1          # 49 history samples carried between calls
 
@@ -74,9 +76,8 @@ def polyphase_interp2(ext_rows: torch.Tensor, taps: np.ndarray,
     if not 0 <= n <= ext_rows.shape[1] - HIST:
         raise ValueError(f"n={n} needs {HIST} + n <= {ext_rows.shape[1]} "
                          "input samples")
-    if ext_rows.device.type == "cpu":
+    if not _build.on_card(ext_rows):
         return interp2_reference(ext_rows, taps, n)
-    _check_cuda(ext_rows)
     return _launch(ext_rows[:, :HIST], ext_rows[:, HIST:HIST + n],
                    _empty_out(ext_rows, n), _phase_taps(taps.tobytes()))
 
@@ -96,9 +97,8 @@ def polyphase_interp2_split(tail: torch.Tensor, cells: torch.Tensor,
     if tail.device != cells.device:
         raise ValueError(f"tail on {tail.device}, cells on {cells.device}")
     n = cells.shape[1]
-    if cells.device.type == "cpu":
+    if not _build.on_card(cells):
         return interp2_reference(torch.cat([tail, cells], dim=1), taps, n)
-    _check_cuda(cells)
     return _launch(tail, cells, _empty_out(cells, n),
                    _phase_taps(taps.tobytes()))
 
@@ -120,11 +120,6 @@ def _check_rows(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must have unit stride along its rows")
 
 
-def _check_cuda(x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-
-
 def _empty_out(like: torch.Tensor, n: int) -> torch.Tensor:
     return torch.empty((2, 2 * n), dtype=torch.float32, device=like.device)
 
@@ -134,19 +129,12 @@ def _launch(tail: torch.Tensor, cells: torch.Tensor, out: torch.Tensor,
     """Run the kernel on checked CUDA rows: ``out [2, 2n]`` (contiguous)
     from ``tail [2, 49]`` and ``cells [2, n]``.  Returns ``out``."""
     global LAUNCHES
-    from dtv_utils_torch.ops import _build
-
     n = cells.shape[1]
     if n == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream(cells.device).cuda_stream
-        err = lib.fir_interp2_split_launch(
-            tail.data_ptr(), tail.stride(0), cells.data_ptr(),
-            cells.stride(0), out.data_ptr(), out.stride(0), n,
-            phase_taps.ctypes.data_as(ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"fir_interp2 launch failed: CUDA error {err}")
+    _build.launch("fir_interp2_split_launch", cells.device,
+                  tail.data_ptr(), tail.stride(0), cells.data_ptr(),
+                  cells.stride(0), out.data_ptr(), out.stride(0), n,
+                  phase_taps.ctypes.data_as(ctypes.c_void_p))
     LAUNCHES += 1
     return out

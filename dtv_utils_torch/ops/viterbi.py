@@ -12,19 +12,24 @@ the number of launches, is ``block + 2·overlap`` whatever the length.
 The blocks run in passes sized to the device's working memory (one pass
 while they fit), so a stream of any length decodes in bounded memory.
 
-On the device that is a Python loop over the steps on metrics ``[B, S]``
-(float32): per step one gather of the step's branch metrics, one add, one
-compare into the decision tensor (bool ``[L, B, S]``), one max over the two
-branches and the per-block max subtraction, and no host sync.  The
-traceback is a reverse loop of three ops per step.  The two loops run
-inside ``torch.profiler`` ranges named ``viterbi_acs`` and
-``viterbi_traceback``, so a trace can attribute their device time.
+Each pass is two kernels hand-written for Hopper (``csrc/viterbi.cu``): the
+ACS over all L steps in one launch, writing the survivor decisions
+bit-packed as the reference packs them (uint8 ``[L, B, S/8]``, bit ``s & 7``
+of byte ``s >> 3``) and the final metrics, then the traceback in a second
+launch.  ``_acs`` and ``_traceback`` are their wrappers: a CUDA tensor
+launches the kernel, a CPU tensor takes the plain version
+(``acs_reference``, a Python loop over the steps on metrics ``[B, S]``
+whose bool decisions ``pack_decisions`` packs, and ``traceback_reference``,
+a reverse loop of three ops per step); there is no other route and no
+fallback.  The launches and the plain loops run inside ``torch.profiler``
+ranges named ``viterbi_acs`` and ``viterbi_traceback``, so a trace can
+attribute their device time; ``LAUNCHES`` counts the kernels' launches.
 
-The arithmetic is the reference's, operation for operation, so decisions
-match it bit for bit on identical LLRs: ``bm = ±x ± y`` (exact sign flips
-of one rounded sum), ``cand = metric + bm``, strict ``>`` (ties pick branch
-0), the max subtraction, and a first-index ``argmax`` at the traceback
-start.
+The arithmetic is the reference's, operation for operation, in the kernels
+and the plain versions alike, so decisions match it bit for bit on
+identical LLRs: ``bm = ±x ± y`` (exact sign flips of one rounded sum),
+``cand = metric + bm``, strict ``>`` (ties pick branch 0), the max
+subtraction, and a first-index ``argmax`` at the traceback start.
 
 State convention (as ``ops/convcode.py`` and ``tx/j83b.py``): the encoder
 register holds the last K-1 input bits, state s = (d[i-1] .. d[i-K+1]) with
@@ -41,8 +46,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dtv_utils_torch.ops import _build
 from dtv_utils_torch.ops.convcode import PUNCTURE_PATTERNS
-from dtv_utils_torch.utils.device import VITERBI_BYTES_PER_STEP, units_per_pass
+from dtv_utils_torch.utils.device import (VITERBI_BYTES_PER_STEP,
+                                          VITERBI_PLAIN_BYTES_PER_STEP,
+                                          units_per_pass)
 
 # DVB-T mother code (EN 300 744 §4.3.3)
 DVBT_K, DVBT_G1, DVBT_G2 = 7, 0o171, 0o133
@@ -52,6 +60,11 @@ J83B_K, J83B_G1, J83B_G2 = 5, 0o25, 0o37
 # Survivor merge depth for the unpunctured mother code (5·K with a wide
 # margin); punctured callers scale it with seam_overlap().
 OVERLAP = 96
+
+KERNEL_K = (5, 7)            # constraint lengths csrc/viterbi.cu is built for
+
+LAUNCHES = {"viterbi_acs": 0, "viterbi_traceback": 0}
+"""Kernel launches so far, per kernel (the CPU path does not count)."""
 
 
 def seam_overlap(k: int, num: int, den: int) -> int:
@@ -141,11 +154,12 @@ def depuncture(llr: torch.Tensor, code_rate: tuple[int, int]) -> torch.Tensor:
     return depuncture_xy(llr, xp, yp)
 
 
-def _acs(pairs: torch.Tensor, k: int, g1: int,
-         g2: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """pairs float32 [L, B, 2] → (decisions bool [L, B, S], final metrics
-    float32 [B, S]).  decisions[t, b, ns] is the reference's ``cand[..., 1]
-    > cand[..., 0]``: True when the survivor into ns came from a = 1."""
+def acs_reference(pairs: torch.Tensor, k: int, g1: int,
+                  g2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ACS kernel: pairs float32 [L, B, 2] →
+    (decisions bool [L, B, S], final metrics float32 [B, S]).
+    decisions[t, b, ns] is the reference's ``cand[..., 1] > cand[..., 0]``:
+    True when the survivor into ns came from a = 1."""
     L, B, _ = pairs.shape
     S = 1 << (k - 1)
     half = S // 2
@@ -169,12 +183,29 @@ def _acs(pairs: torch.Tensor, k: int, g1: int,
     return decs.view(L, B, S), metrics.view(B, S)
 
 
-def _traceback(decs: torch.Tensor, final: torch.Tensor,
-               k: int) -> torch.Tensor:
-    """decisions bool [L, B, S], final metrics [B, S] → decoded bits uint8
-    [L, B] (bit t is the encoder input of step t)."""
+def pack_decisions(decs: torch.Tensor) -> torch.Tensor:
+    """bool [L, B, S] → uint8 [L, B, S/8]: decision s in bit ``s & 7`` of
+    byte ``s >> 3``, the reference's packing and the kernel's words."""
     L, B, S = decs.shape
-    states = torch.empty((L + 1, B, 1), dtype=torch.int64, device=decs.device)
+    u = decs.view(torch.uint8).reshape(L, B, S // 8, 8)
+    packed = u[..., 0].clone()
+    for i in range(1, 8):
+        packed |= u[..., i] << i
+    return packed
+
+
+def traceback_reference(packed: torch.Tensor, final: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """Plain version of the traceback kernel: packed decisions uint8
+    [L, B, S/8] and final metrics [B, S] → decoded bits uint8 [L, B] (bit t
+    is the encoder input of step t)."""
+    L, B, nbytes = packed.shape
+    S = 8 * nbytes
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    decs = (packed[..., None] >> shifts).bitwise_and_(1).view(
+        torch.bool).view(L, B, S)
+    states = torch.empty((L + 1, B, 1), dtype=torch.int64,
+                         device=packed.device)
     # torch.argmax returns the first maximal index, as jnp.argmax does
     states[L] = final.argmax(-1, keepdim=True)
     with torch.profiler.record_function("viterbi_traceback"):
@@ -183,6 +214,75 @@ def _traceback(decs: torch.Tensor, final: torch.Tensor,
             torch.bitwise_and(torch.add(a, states[t + 1], alpha=2), S - 1,
                               out=states[t])
     return (states[1:, :, 0] >> (k - 2)).to(torch.uint8)
+
+
+def _on_card(x: torch.Tensor, k: int) -> bool:
+    """``_build.on_card``, and on the card a K the kernels are built
+    for."""
+    card = _build.on_card(x)
+    if card and k not in KERNEL_K:
+        raise ValueError(f"the Viterbi kernels are built for K in "
+                         f"{KERNEL_K}, not {k}")
+    return card
+
+
+def _acs(pairs: torch.Tensor, k: int, g1: int,
+         g2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ACS over all steps: pairs float32 [L, B, 2] (contiguous) → (packed
+    decisions uint8 [L, B, S/8], final metrics float32 [B, S]), by the
+    kernel on the card and by ``acs_reference`` on the CPU."""
+    if pairs.dtype != torch.float32:
+        raise TypeError(f"pairs must be float32, got {pairs.dtype}")
+    if pairs.dim() != 3 or pairs.shape[2] != 2 or k < 4:
+        raise ValueError(f"need pairs [L, B, 2] and K >= 4, got "
+                         f"{tuple(pairs.shape)}, K={k}")
+    if not pairs.is_contiguous():
+        raise ValueError("pairs must be contiguous")
+    if not _on_card(pairs, k):
+        decs, final = acs_reference(pairs, k, g1, g2)
+        return pack_decisions(decs), final
+    L, B, _ = pairs.shape
+    S = 1 << (k - 1)
+    packed = torch.empty((L, B, S // 8), dtype=torch.uint8,
+                         device=pairs.device)
+    final = torch.empty((B, S), dtype=torch.float32, device=pairs.device)
+    with torch.profiler.record_function("viterbi_acs"):
+        _build.launch("viterbi_acs_launch", pairs.device, k,
+                      pairs.data_ptr(), L, B, g1, g2, packed.data_ptr(),
+                      final.data_ptr())
+    LAUNCHES["viterbi_acs"] += 1
+    return packed, final
+
+
+def _traceback(packed: torch.Tensor, final: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """Packed decisions uint8 [L, B, S/8] and final metrics float32 [B, S]
+    (both contiguous, on one device) → bits uint8 [L, B], by the kernel on
+    the card and by ``traceback_reference`` on the CPU."""
+    S = 1 << (k - 1)
+    if packed.dtype != torch.uint8 or final.dtype != torch.float32:
+        raise TypeError(f"need uint8 decisions and float32 metrics, got "
+                        f"{packed.dtype} and {final.dtype}")
+    if (packed.dim() != 3 or k < 4 or packed.shape[2] != S // 8
+            or final.shape != (packed.shape[1], S)):
+        raise ValueError(f"need decisions [L, B, {S // 8}] and metrics "
+                         f"[B, {S}] for K={k}, got {tuple(packed.shape)} "
+                         f"and {tuple(final.shape)}")
+    if packed.device != final.device:
+        raise ValueError(f"decisions on {packed.device}, metrics on "
+                         f"{final.device}")
+    if not (packed.is_contiguous() and final.is_contiguous()):
+        raise ValueError("decisions and metrics must be contiguous")
+    if not _on_card(packed, k):
+        return traceback_reference(packed, final, k)
+    L, B, _ = packed.shape
+    bits = torch.empty((L, B), dtype=torch.uint8, device=packed.device)
+    with torch.profiler.record_function("viterbi_traceback"):
+        _build.launch("viterbi_traceback_launch", packed.device, k,
+                      packed.data_ptr(), final.data_ptr(), L, B,
+                      bits.data_ptr())
+    LAUNCHES["viterbi_traceback"] += 1
+    return bits
 
 
 def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
@@ -196,9 +296,11 @@ def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
     block = min(block, n)
     nb = -(-n // block)
     L = block + 2 * overlap
-    # VITERBI_BYTES_PER_STEP is K=7's; the narrower K=5 trellis needs less
-    per_pass = max(1, units_per_pass(device, L * VITERBI_BYTES_PER_STEP)
-                   // n_str)
+    # the kernels' bytes on the card, the plain version's (bool decisions)
+    # on the CPU; both K=7's, and the narrower K=5 trellis needs less
+    step = (VITERBI_BYTES_PER_STEP if device.type == "cuda"
+            else VITERBI_PLAIN_BYTES_PER_STEP)
+    per_pass = max(1, units_per_pass(device, L * step) // n_str)
     core = torch.empty((n_str, nb, block), dtype=torch.uint8, device=device)
     for b0 in range(0, nb, per_pass):
         b1 = min(b0 + per_pass, nb)
@@ -213,11 +315,13 @@ def _decode(window, n_str: int, n: int, block: int, overlap: int, k: int,
         ext = F.pad(x, (0, 0, max(-lo, 0), 0), value=4.0)
         ext = F.pad(ext, (0, 0, 0, max(hi - n, 0)))
         blocks = ext.unfold(1, L, block)                 # [str, nbp, 2, L]
-        pairs = blocks.permute(3, 0, 1, 2).reshape(L, -1, 2)
-        decs, final = _acs(pairs, k, g1, g2)
-        bits = _traceback(decs, final, k)                # [L, str*nbp]
+        pairs = blocks.permute(3, 0, 1, 2).reshape(L, -1, 2).contiguous()
+        packed, final = _acs(pairs, k, g1, g2)
+        bits = _traceback(packed, final, k)              # [L, str*nbp]
         core[:, b0:b1] = bits[overlap:overlap + block].T.reshape(
             n_str, b1 - b0, block)
+        # free this pass before the next one builds its window
+        del x, ext, blocks, pairs, packed, final, bits
     return core.view(n_str, nb * block)[:, :n]
 
 

@@ -54,10 +54,15 @@ def split_device_arg(argv: list[str]) -> tuple[list[str], str]:
 # stage's input) that ``chip_smoke.check_pass_units`` reads at the DVB-T
 # flagship's 2 and 8 superframes per call, with about a quarter added for
 # other configs; that check fails if a peak outgrows its size.  Measured
-# on an NVIDIA H100 80GB HBM3 (700 W): 118.4, 103.6 and 56,804 bytes.
+# on an NVIDIA H100 80GB HBM3 (700 W): 118.4 (front end), 56,804 (RS) and,
+# with the Viterbi kernels' packed decisions, 32.0 bytes.  The Viterbi's
+# plain version (bool decisions, on the CPU) is sized from the resident
+# peak that ``tools/viterbi_plain_peak.py`` reads on the host at 200 and
+# 400 blocks: 111.5 bytes.
 CPU_WORKING_BYTES = 1 << 30
 FRONT_BYTES_PER_SAMPLE = 160       # rx.dvbt front end, per IQ sample
-VITERBI_BYTES_PER_STEP = 128       # ops.viterbi, per trellis step of a block
+VITERBI_BYTES_PER_STEP = 40        # ops.viterbi kernels, per trellis step
+VITERBI_PLAIN_BYTES_PER_STEP = 140  # its plain version, per trellis step
 RS_BYTES_PER_PACKET = 72 << 10     # rx.dvbt.decode_outer, per TS packet
 
 

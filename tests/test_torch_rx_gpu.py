@@ -9,7 +9,9 @@ tests/test_torch_rx_gpu.py -m gpu``.  The JAX comparisons are in
 The Viterbi, RS and min-sum LDPC decoders do exact or fixed-order
 arithmetic, so their outputs must be equal; the receivers' FFT and matched
 filter round differently on the card, so there the TS and every flag must
-be equal, and the input TS recovered.
+be equal, and the input TS recovered.  The Viterbi and min-sum kernels
+(``csrc/viterbi.cu``, ``csrc/ldpc_minsum.cu``) are also held to their plain
+versions run on the card on the same tensors, bit for bit.
 """
 
 import numpy as np
@@ -64,6 +66,99 @@ def test_viterbi_cuda_equals_cpu():
         np.float32))
     got = TV.viterbi_decode_punctured(llr.cuda(), rate, 1024).cpu()
     assert torch.equal(got, TV.viterbi_decode_punctured(llr, rate, 1024))
+
+
+def _acs_inputs(monkeypatch, decode):
+    """The (pairs, k, g1, g2) that ``decode()`` hands the ACS wrapper."""
+    seen, acs = [], TV._acs
+
+    def keep(pairs, *code):
+        seen.append((pairs, *code))
+        return acs(pairs, *code)
+
+    monkeypatch.setattr(TV, "_acs", keep)
+    decode()
+    monkeypatch.setattr(TV, "_acs", acs)
+    return seen
+
+
+def _viterbi_kernels_equal_plain(pairs, k, g1, g2):
+    before = dict(TV.LAUNCHES)
+    packed, final = TV._acs(pairs, k, g1, g2)
+    bits = TV._traceback(packed, final, k)
+    assert TV.LAUNCHES == {key: n + 1 for key, n in before.items()}
+    decs, want_final = TV.acs_reference(pairs, k, g1, g2)
+    assert torch.equal(packed, TV.pack_decisions(decs))
+    assert torch.equal(final, want_final)
+    assert torch.equal(bits, TV.traceback_reference(packed, final, k))
+    return packed, bits
+
+
+@pytest.mark.gpu
+def test_viterbi_k7_kernels_equal_plain(monkeypatch):
+    """K=7 at rate 7/8 with noise, blocks of 1024 steps: the seams' head
+    pad and tail erasures included."""
+    _need_cuda()
+    rate, n = (7, 8), 7 * 3000
+    rng = np.random.default_rng(17)
+    bits = torch.from_numpy(rng.integers(0, 2, n).astype(np.uint8))
+    enc = convcode.conv_encode(bits, torch.zeros(6, dtype=torch.uint8))
+    kept = enc.reshape(-1)[convcode.puncture_indices(rate, n)]
+    llr = (1.0 - 2.0 * kept.to(torch.float32) + torch.from_numpy(
+        rng.normal(0, 0.5, n * 8 // 7).astype(np.float32))).cuda()
+    (args,) = _acs_inputs(monkeypatch, lambda: TV.viterbi_decode_punctured(
+        llr, rate, 1024))
+    assert args[1:] == (TV.DVBT_K, TV.DVBT_G1, TV.DVBT_G2)
+    _viterbi_kernels_equal_plain(*args)
+
+
+@pytest.mark.gpu
+def test_viterbi_k5_kernels_equal_plain(monkeypatch):
+    """K=5 on J.83B's hard ±1 substreams of noisy trellis words."""
+    _need_cuda()
+    words = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 64, 5 * 2000).astype(np.int32)).cuda()
+    (args,) = _acs_inputs(monkeypatch, lambda: RXQ.trellis_decode(words))
+    assert args[1:] == (TV.J83B_K, TV.J83B_G1, TV.J83B_G2)
+    _viterbi_kernels_equal_plain(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 5])
+def test_viterbi_kernels_tied_metrics(k):
+    """All erasures tie every candidate and every final metric: no
+    decision set, and the traceback starts at state 0."""
+    _need_cuda()
+    g = ((TV.DVBT_K, TV.DVBT_G1, TV.DVBT_G2) if k == 7
+         else (TV.J83B_K, TV.J83B_G1, TV.J83B_G2))
+    packed, bits = _viterbi_kernels_equal_plain(
+        torch.zeros(301, 37, 2, device="cuda"), *g)
+    assert not packed.any() and not bits.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["awgn", "noise"])
+def test_ldpc_kernels_equal_plain(case):
+    """Three iterations step by step: the variable kernel's totals and the
+    check kernel's messages equal the plain versions' on the card."""
+    _need_cuda()
+    rng = np.random.default_rng(19)
+    if case == "awgn":
+        llr = _t2_awgn_llrs(rng)[0]
+    else:
+        llr = torch.from_numpy(rng.normal(0, 1, (3, T2_CFG.nldpc)).astype(
+            np.float32))
+    dg, llr_t, totals, c2v = LD._start(T2_CFG, llr.cuda())
+    plain_totals, plain_c2v = totals.clone(), c2v.clone()
+    before = dict(LD.LAUNCHES)
+    for _ in range(3):
+        LD._variable_totals(dg, llr_t, c2v, totals)
+        LD.variable_totals_reference(dg, llr_t, plain_c2v, plain_totals)
+        assert torch.equal(totals, plain_totals)
+        c2v = LD._check_update(dg, totals, c2v)
+        plain_c2v = LD.check_update_reference(dg, plain_totals, plain_c2v)
+        assert torch.equal(c2v, plain_c2v)
+    assert LD.LAUNCHES == {key: n + 3 for key, n in before.items()}
 
 
 @pytest.mark.gpu
@@ -138,12 +233,8 @@ def _t2_iq(snr_db):
     return ts, (iq if snr_db is None else _awgn(iq, snr_db, 7))
 
 
-@pytest.mark.gpu
-def test_ldpc_cuda_equals_cpu():
-    """Hard bits and ok of a channel the decoder corrects and of one it
-    cannot (10 iterations on noise), and the syndrome, bit for bit."""
-    _need_cuda()
-    rng = np.random.default_rng(2)
+def _t2_awgn_llrs(rng):
+    """T2_CFG codewords through BPSK at 2.5 dB Es/N0: (llr, codewords)."""
     bb = torch.from_numpy(rng.integers(0, 2, (3, T2_CFG.kbch)).astype(
         np.uint8))
     fec = TX2.fec_encode(T2_CFG, bb)
@@ -151,6 +242,16 @@ def test_ldpc_cuda_equals_cpu():
     llr = (2 * (1.0 - 2.0 * fec.float()) / sigma ** 2
            + torch.from_numpy(rng.normal(0, 2 / sigma, fec.shape).astype(
                np.float32)))
+    return llr, fec
+
+
+@pytest.mark.gpu
+def test_ldpc_cuda_equals_cpu():
+    """Hard bits and ok of a channel the decoder corrects and of one it
+    cannot (10 iterations on noise), and the syndrome, bit for bit."""
+    _need_cuda()
+    rng = np.random.default_rng(2)
+    llr, fec = _t2_awgn_llrs(rng)
     noise = torch.from_numpy(rng.normal(0, 1, fec.shape).astype(np.float32))
     for x, it in ((llr, 30), (noise, 10)):
         got = LD.decode(T2_CFG, x.cuda(), iterations=it)
