@@ -25,9 +25,11 @@ the JAX reference:
   superframes at 20.0 dB and at K=5 on J.83B's 2 superblocks at 27 dB
   (packed decisions, final metrics, bits), the min-sum check and variable
   kernels (``csrc/ldpc_minsum.cu``) on one BBC frame's 202 soft FEC blocks
-  at 23.0 dB and on pure noise (totals and messages after the first and
-  the 30th iteration, hard bits, ``ok``); each timed cold and warm beside
-  its bound and its plain version;
+  at 23.0 dB and on pure noise, on blade's 31 coded blocks (a ragged
+  slice) and on SHORT 5/6 noise (D = 42): the check state, the messages
+  it rebuilds and the totals after the first and the 30th iteration, hard
+  bits, ``ok``; each timed cold and warm beside its bound and its plain
+  version, the BBC frame also at 32 and 64 codewords per slice;
 * the DVB-T and J.83B receivers on the IQ above, clean and through AWGN at
   20.0 and 27 dB, with every kernel of the path launched (the counts set
   to 0 before each receiver's run and read after it): the exact input TS
@@ -151,6 +153,7 @@ RX_LDPC_BLOCKS = 8                      # card-vs-CPU LDPC cut, FEC blocks
 DEC_TIMED = 6                           # decoder-kernel launches per timing
 DEC_SETS = 2                            # input sets rotated when cold
 DEC_NOISE_SEED = 0xDEC                  # the LDPC's pure-noise LLRs
+LDPC_ES_N0_DB = 2.5                     # BPSK codewords the decoder corrects
 LDPC_ITERATIONS = 30                    # rx.dvbt2's soft decode
 SPIN_CYCLES_PER_MS = 2e6                # torch.cuda._sleep, ~2 GHz SM clock
 HOST_PROBE_LAUNCHES = 20_000            # tiny launches per host probe
@@ -1424,8 +1427,9 @@ def check_dvbt2_stages(dev, iq: np.ndarray, noisy: np.ndarray) -> None:
 
 def time_dvbt2_rx(dev, card: str, iq: np.ndarray) -> dict[str, float]:
     """DVB-T2 BBC receive throughput, device-resident IQ in and the host TS
-    out, hard and soft, 2 frames per call; and the soft call's peak device
-    memory.  Returns the median seconds per call of each path."""
+    out, hard and soft, 2 frames per call; the soft call's peak device
+    memory, and one soft frame's.  Returns the median seconds per call of
+    each path."""
     from dtv_utils_torch.rx import dvbt2 as rx2
     from dtv_utils_torch.tx import dvbt2 as t2
 
@@ -1451,6 +1455,14 @@ def time_dvbt2_rx(dev, card: str, iq: np.ndarray) -> dict[str, float]:
               f"{float(cfg.sample_rate) / 1e6:.6f} Msps); peak device memory "
               f"{peak / 1e9:.3f} GB above the IQ held; on {card}")
         out["soft" if soft else "hard"] = sorted(secs)[1]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rx2._decode_frame(cfg, x[2048:spf], True, LDPC_ITERATIONS)
+    torch.cuda.synchronize()
+    print(f"dvbt2 rx bbc soft, one frame's decode (P1 stripped): peak device "
+          f"memory {(torch.cuda.max_memory_allocated(dev) - held) / 1e6:.3f} "
+          f"MB above the IQ held; on {card}")
     return out
 
 
@@ -1530,20 +1542,34 @@ def viterbi_bounds(L: int, B: int, S: int) -> dict[str, tuple[float, str]]:
                                         B * (S - 1))}
 
 
-def ldpc_bounds(batch: int, nldpc: int,
-                n_edges: int) -> dict[str, tuple[float, str]]:
-    """The work min-sum needs, over the code's real edges (the kernels'
-    padding of each check to D slots is their own overhead).  Check
-    kernel: totals read once, each edge's message read and written, its
-    slot read; per edge a subtract, |x|, two compares, a min, a compare, a
-    select and a product.  Variable kernel: each edge's message and its
-    slot, llr read, totals written; one add per edge."""
+def ldpc_bounds(batch: int, nldpc: int, n_par: int, n_edges: int,
+                dv: int) -> dict[str, tuple[float, str]]:
+    """The work of one min-sum iteration in the representation the kernels
+    carry: 16 bytes of check state (m1, m2, meta) per check and codeword.
+    Check kernel: totals read once, the state read and written, the CSR
+    edge list read; per edge a product (the old message), a subtract, |x|,
+    two compares, a min and two bit operations.  Variable kernel: the
+    state read, llr read, totals written, the [dv, nldpc] table read; per
+    edge a product and an add, per variable the llr add."""
     return {"ldpc_check": _bound(
-                4 * (nldpc + 1) * batch + 2 * 4 * n_edges * batch
-                + 8 * n_edges, 8 * n_edges * batch),
+                4 * nldpc * batch + 2 * 16 * n_par * batch
+                + 4 * (n_par + 1) + 4 * n_edges, 8 * n_edges * batch),
             "ldpc_variable": _bound(
-                4 * n_edges * batch + 4 * n_edges + 2 * 4 * nldpc * batch,
-                n_edges * batch)}
+                16 * n_par * batch + 2 * 4 * nldpc * batch
+                + 4 * dv * nldpc, (2 * n_edges + nldpc) * batch)}
+
+
+def ldpc_message_bounds(batch: int, nldpc: int,
+                        n_edges: int) -> dict[str, float]:
+    """The message yardstick, ms: the same iteration carrying one float
+    message per real edge, as a padded message table does but counted
+    over the real edges.  Check: totals read, each message read and
+    written, its slot read; variable: each message and its slot read, llr
+    read, totals written."""
+    return {"ldpc_check": (4 * (nldpc + 1) * batch + 8 * n_edges * batch
+                           + 8 * n_edges) / HBM_BYTES_PER_S * 1e3,
+            "ldpc_variable": (4 * n_edges * batch + 4 * n_edges
+                              + 8 * nldpc * batch) / HBM_BYTES_PER_S * 1e3}
 
 
 def _span_ms(fn) -> float:
@@ -1633,60 +1659,145 @@ def check_viterbi_kernels(label: str, args: tuple, card: str) -> dict:
     return out
 
 
-def check_ldpc_kernels(label: str, llr: torch.Tensor, card: str) -> dict:
+def check_ldpc_kernels(label: str, cfg, llr: torch.Tensor,
+                       card: str) -> dict:
     """The check and variable kernels against their plain versions on the
-    card, on one BBC frame's LLRs [202, nldpc]: totals and c2v after the
-    first and the last of LDPC_ITERATIONS iterations, hard bits and ok;
-    then their times beside their bounds."""
+    card, on LLRs [batch, nldpc] of ``cfg``'s code: the check state (m1,
+    m2, meta), the messages it rebuilds and the totals after the first and
+    the last of LDPC_ITERATIONS iterations, hard bits and ok, and
+    ``decode``; then their times beside their bounds and the decoder's
+    peak memory."""
     from dtv_utils_torch.ops import ldpc_decode as LD
 
-    cfg = dvbt2_bbc()
-    dg, llr_t, totals, c2v = LD._start(cfg, llr)
-    p_totals, p_c2v = totals.clone(), c2v.clone()
+    dg, llr_s, totals, state = LD._start(cfg, llr)
+    p_totals, p_state = totals.clone(), tuple(x.clone() for x in state)
+    err = 0.0
     for it in range(1, LDPC_ITERATIONS + 1):
-        LD._variable_totals(dg, llr_t, c2v, totals)
-        c2v = LD._check_update(dg, totals, c2v)
-        p_c2v = LD.minsum_iteration_reference(dg, llr_t, p_c2v, p_totals)
+        LD._variable_totals(dg, llr_s, state, totals)
+        state = LD._check_update(dg, totals, state)
+        p_state = LD.minsum_iteration_reference(dg, llr_s, p_state, p_totals)
         if it in (1, LDPC_ITERATIONS):
             _equal_on(f"{label} totals, iteration {it}", totals.cpu(),
                       p_totals.cpu())
-            _equal_on(f"{label} c2v, iteration {it}", c2v.cpu(),
+            _equal_on(f"{label} state (m1, m2, meta), iteration {it}",
+                      tuple(x.cpu() for x in state),
+                      tuple(x.cpu() for x in p_state))
+            c2v, p_c2v = LD.expand_c2v(dg, state), LD.expand_c2v(dg, p_state)
+            _equal_on(f"{label} messages, iteration {it}", c2v.cpu(),
                       p_c2v.cpu())
-    err = max(_max_abs_diff(c2v, p_c2v), _max_abs_diff(totals, p_totals))
-    LD._variable_totals(dg, llr_t, c2v, totals)
-    LD.variable_totals_reference(dg, llr_t, p_c2v, p_totals)
-    hard, ok = LD._finish(cfg, totals)
+            err = max(err, _max_abs_diff(c2v, p_c2v),
+                      _max_abs_diff(totals, p_totals),
+                      *(_max_abs_diff(x, y) for x, y in zip(state, p_state)))
+            del c2v, p_c2v
+    LD._variable_totals(dg, llr_s, state, totals)
+    LD.variable_totals_reference(dg, llr_s, p_state, p_totals)
+    err = max(err, _max_abs_diff(totals, p_totals))
+    hard, ok = LD._finish(dg, totals)
     _equal_on(f"{label} hard bits and ok", (hard, ok),
-              tuple(x.cpu() for x in LD._finish(cfg, p_totals)))
-    _equal_on(f"{label} decode", LD.decode(cfg, llr, LDPC_ITERATIONS),
-              (hard.cpu(), ok.cpu()))
-    print(f"ldpc kernels, {label} ({llr.shape[0]} FEC blocks, D={dg['D']}): "
-          f"totals and c2v after iterations 1 and {LDPC_ITERATIONS}, hard "
-          f"bits and ok ({int(ok.sum())} converged) equal the plain "
-          "versions' on the card")
-    n_par, D, batch = c2v.shape
+              tuple(x.cpu() for x in LD._finish(dg, p_totals)))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = LD.decode(cfg, llr, LDPC_ITERATIONS)
+    peak = torch.cuda.max_memory_allocated() - held
+    _equal_on(f"{label} decode", got, (hard.cpu(), ok.cpu()))
+    batch = llr.shape[0]
+    print(f"ldpc kernels, {label} ({batch} FEC blocks, D={dg['D']}, "
+          f"{-(-batch // dg['cols'])} slices of {dg['cols']}): state, "
+          f"messages and totals after iterations 1 and {LDPC_ITERATIONS}, "
+          f"hard bits and ok ({int(ok.sum())} converged) equal the plain "
+          f"versions' on the card; decode's peak {peak / 1e6:.3f} MB above "
+          f"its input (check state {sum(x.nbytes for x in state) / 1e6:.3f}"
+          " MB)")
     g = LD._graph(cfg)
-    bounds = ldpc_bounds(batch, cfg.nldpc, g["n_edges"])
-    c2v_sets = [c2v] + [c2v.clone() for _ in range(DEC_SETS - 1)]
+    bounds = ldpc_bounds(batch, cfg.nldpc, dg["n_par"], g["n_edges"],
+                         dg["var_pairs"].shape[0])
+    old = ldpc_message_bounds(batch, cfg.nldpc, g["n_edges"])
+    state_sets = [state] + [tuple(x.clone() for x in state)
+                            for _ in range(DEC_SETS - 1)]
     tot_sets = [totals] + [totals.clone() for _ in range(DEC_SETS - 1)]
-    acc = totals.clone()
+    acc = totals.view(cfg.nldpc, batch).clone()
+    c2v = LD.expand_c2v(dg, state)
     out = {}
     for name, sets, plain, library in (
             ("ldpc_check",
-             [functools.partial(LD._check_update, dg, tt, cc)
-              for tt, cc in zip(tot_sets, c2v_sets)],
-             lambda: LD.check_update_reference(dg, totals, c2v), None),
+             [functools.partial(LD._check_update, dg, tt, ss)
+              for tt, ss in zip(tot_sets, state_sets)],
+             lambda: LD.check_update_reference(dg, totals, state), None),
             ("ldpc_variable",
-             [functools.partial(LD._variable_totals, dg, llr_t, cc, tt)
-              for tt, cc in zip(tot_sets, c2v_sets)],
-             lambda: LD.variable_totals_reference(dg, llr_t, c2v, acc),
-             lambda: acc.index_add_(0, dg["slot_var"],
-                                    c2v.view(-1, batch)))):
+             [functools.partial(LD._variable_totals, dg, llr_s, ss, tt)
+              for tt, ss in zip(tot_sets, state_sets)],
+             lambda: LD.variable_totals_reference(dg, llr_s, state,
+                                                  p_totals),
+             lambda: acc.index_add_(0, dg["edge_var"], c2v))):
         t = _timed(sets, plain, library)
         _report(name, label, t, bounds[name], card)
-        out[name] = dict(t, bound=bounds[name], max_abs_err=err,
-                         shape=dict(n_par=n_par, D=D, batch=batch))
+        print(f"  {name} ({label}) against the uncompressed message "
+              f"bytes, one float per real edge: {old[name]:.5f} ms, "
+              f"{old[name] / t['cold']:.3f} of it")
+        out[name] = dict(t, bound=bounds[name], message_bound_ms=old[name],
+                         max_abs_err=err, decode_peak_mb=peak / 1e6,
+                         shape=dict(n_par=dg["n_par"], D=dg["D"],
+                                    batch=batch, cols=dg["cols"]))
     return out
+
+
+def time_ldpc_slices(cfg, llr: torch.Tensor, card: str) -> dict:
+    """The check and variable kernels at 32 and 64 codewords per slice, in
+    turns (32, 64, 64, 32), cold and warm on one input after 3 iterations;
+    the two widths' messages must be equal.  Returns the mean cold ms by
+    width and kernel."""
+    from dtv_utils_torch.ops import ldpc_decode as LD
+
+    runs, c2v = {}, {}
+    for cols in (32, 64):
+        dg, llr_s, totals, state = LD._start(cfg, llr, cols)
+        for _ in range(3):
+            LD._variable_totals(dg, llr_s, state, totals)
+            state = LD._check_update(dg, totals, state)
+        c2v[cols] = LD.expand_c2v(dg, state)
+        sets = [(totals, state)] + [
+            (totals.clone(), tuple(x.clone() for x in state))
+            for _ in range(DEC_SETS - 1)]
+        runs[cols] = {
+            "ldpc_check": [functools.partial(LD._check_update, dg, tt, ss)
+                           for tt, ss in sets],
+            "ldpc_variable": [functools.partial(LD._variable_totals, dg,
+                                                llr_s, ss, tt)
+                              for tt, ss in sets]}
+    _equal_on("ldpc messages at 32 and 64 codewords per slice",
+              c2v[64].cpu(), c2v[32].cpu())
+    del c2v
+    res = {cols: collections.defaultdict(list) for cols in runs}
+    for cols in (32, 64, 64, 32):
+        for name, sets in runs[cols].items():
+            res[cols][name].append(_queued_ms(
+                [sets[i % len(sets)] for i in range(DEC_TIMED)]))
+            res[cols][name + "_warm"].append(_queued_ms([sets[0]]
+                                                        * DEC_TIMED))
+    for cols, r in res.items():
+        times = "; ".join(f"{k} " + " / ".join(f"{x:.5f}" for x in v)
+                          + " ms" for k, v in r.items())
+        print(f"ldpc slices of {cols} ({llr.shape[0]} FEC blocks): {times}; "
+              f"on {card}")
+    return {cols: {k: sum(v) / len(v) for k, v in r.items()}
+            for cols, r in res.items()}
+
+
+def coded_llrs(cfg, blocks: int, es_n0_db: float, seed: int,
+               dev) -> torch.Tensor:
+    """LLRs [blocks, nldpc] of random codewords of ``cfg``'s code through
+    BPSK and host ``default_rng`` noise at ``es_n0_db``."""
+    from dtv_utils_torch.tx import dvbt2 as t2
+
+    rng = np.random.default_rng(seed)
+    bb = torch.from_numpy(rng.integers(0, 2, (blocks, cfg.kbch)).astype(
+        np.uint8)).to(dev)
+    fec = t2.fec_encode(cfg, bb).float()
+    sigma = np.sqrt(1 / (2 * 10 ** (es_n0_db / 10)))
+    noise = torch.from_numpy(rng.normal(0, sigma, tuple(fec.shape)).astype(
+        np.float32)).to(dev)
+    return 2 * (1.0 - 2.0 * fec + noise) / sigma ** 2
 
 
 def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
@@ -1696,8 +1807,11 @@ def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
     superframes at RX_DVBT_SNR_DB (K=7) and on J.83B's 2 superblocks at
     RX_J83B_SNR_DB (K=5), the pairs the receivers hand the ACS; the
     min-sum kernels on one BBC frame's 202 soft blocks at RX_DVBT2_SNR_DB
-    and on pure noise.  Returns the timings by kernel and case."""
-    from dtv_utils_torch.core.config import J83bConfig
+    (also timed at 32 and 64 codewords per slice) and on pure noise, on
+    blade's 31 coded blocks (a ragged slice) and on pure noise of the
+    SHORT 5/6 code (D = 42).  Returns the timings by kernel and case."""
+    from dtv_utils_torch.core.config import J83bConfig, T2CodeRate, T2FrameSize
+    from dtv_utils_torch.models.dvbt2 import PROFILES
     from dtv_utils_torch.rx import dvbt as rxd
     from dtv_utils_torch.rx import dvbt2 as rx2
     from dtv_utils_torch.rx import j83b as rxq
@@ -1726,10 +1840,22 @@ def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
     llr = rx2.soft_llrs(bbc, cells)
     g = torch.Generator(device=dev).manual_seed(DEC_NOISE_SEED)
     res["dvbt2_awgn"] = check_ldpc_kernels(
-        f"bbc frame at {RX_DVBT2_SNR_DB} dB", llr, card)
+        f"bbc frame at {RX_DVBT2_SNR_DB} dB", bbc, llr, card)
+    res["ldpc_slices"] = time_ldpc_slices(bbc, llr, card)
     res["dvbt2_noise"] = check_ldpc_kernels(
-        "bbc frame of pure noise", torch.randn(llr.shape, generator=g,
-                                               device=dev), card)
+        "bbc frame of pure noise", bbc,
+        torch.randn(llr.shape, generator=g, device=dev), card)
+    blade = PROFILES["blade"]
+    res["dvbt2_blade"] = check_ldpc_kernels(
+        f"blade's {blade.fec_blocks} blocks at {LDPC_ES_N0_DB} dB Es/N0",
+        blade, coded_llrs(blade, blade.fec_blocks, LDPC_ES_N0_DB,
+                          DEC_NOISE_SEED, dev), card)
+    short = dataclasses.replace(blade, frame_size=T2FrameSize.SHORT,
+                                code_rate=T2CodeRate.R5_6)
+    res["dvbt2_short_5_6"] = check_ldpc_kernels(
+        "short 5/6 pure noise", short,
+        torch.randn(llr.shape[0], short.nldpc, generator=g, device=dev),
+        card)
     torch.cuda.empty_cache()
     return res
 
@@ -2596,29 +2722,40 @@ def main() -> int:
         "bound_share_cold": bound_ms / t["kernel_cold"],
         "library_ms": t["library_cold"],
         "library_warm_ms": t["library_warm"]}]
+    ldpc_extra = ("dvbt2_noise", "dvbt2_blade", "dvbt2_short_5_6")
     for name, source, replaces, case, runs, extra in (
             ("viterbi_acs", "viterbi.cu", "viterbi.py:153", "dvbt",
-             ("dvbt rx", "j83b rx"), "j83b"),
+             ("dvbt rx", "j83b rx"), ("j83b",)),
             ("viterbi_traceback", "viterbi.cu", "viterbi.py:173", "dvbt",
-             ("dvbt rx", "j83b rx"), "j83b"),
+             ("dvbt rx", "j83b rx"), ("j83b",)),
             ("ldpc_check", "ldpc_minsum.cu", "ldpc_decode.py:112",
-             "dvbt2_awgn", ("dvbt2 rx",), "dvbt2_noise"),
+             "dvbt2_awgn", ("dvbt2 rx",), ldpc_extra),
             ("ldpc_variable", "ldpc_minsum.cu", "ldpc_decode.py:113",
-             "dvbt2_awgn", ("dvbt2 rx",), "dvbt2_noise")):
-        m, x = dec[case][name], dec[extra][name]
-        kernels.append({
+             "dvbt2_awgn", ("dvbt2 rx",), ldpc_extra)):
+        m = dec[case][name]
+        entry = {
             "name": name, "route": "cuda",
             "source": f"dtv_utils_torch/csrc/{source}",
             "replaces": f"dtv_utils_tpu/ops/{replaces}",
             "launches": sum(rx_launches[r][name] for r in runs),
             "launches_by_run": {r: rx_launches[r][name] for r in runs},
-            "max_abs_err": max(m["max_abs_err"], x["max_abs_err"]),
+            "max_abs_err": max(dec[c][name]["max_abs_err"]
+                               for c in (case, *extra)),
             "ms": m["cold"], "cold_ms": m["cold"], "warm_ms": m["warm"],
             "plain_ms": m["plain"], "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1], "library_ms": m["library"],
-            "shape": m["shape"], extra: {
-                k: x[k] for k in ("cold", "warm", "plain", "library",
-                                  "shape")} | {"bound_ms": x["bound"][0]}})
+            "shape": m["shape"]}
+        if "message_bound_ms" in m:
+            entry |= {"message_bound_ms": m["message_bound_ms"],
+                      "decode_peak_mb": m["decode_peak_mb"],
+                      "cold_ms_by_slice_cols": {
+                          c: r[name] for c, r in dec["ldpc_slices"].items()}}
+        for c in extra:
+            x = dec[c][name]
+            entry[c] = {k: x[k] for k in ("cold", "warm", "plain", "library",
+                                          "shape")} | {
+                "bound_ms": x["bound"][0]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

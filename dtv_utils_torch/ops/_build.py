@@ -103,8 +103,8 @@ def library() -> ctypes.CDLL:
             ("fir_interp2_split_launch", [vp, ll, vp, ll, vp, ll, ll, vp, vp]),
             ("viterbi_acs_launch", [i, vp, ll, ll, i, i, vp, vp, vp]),
             ("viterbi_traceback_launch", [i, vp, vp, ll, ll, vp, vp]),
-            ("ldpc_check_launch", [vp, vp, vp, ll, ll, ll, vp]),
-            ("ldpc_variable_launch", [vp, vp, vp, ll, ll, ll, vp, vp])):
+            ("ldpc_check_launch", [vp] * 6 + [ll] * 5 + [vp]),
+            ("ldpc_variable_launch", [vp] * 5 + [ll] * 5 + [vp, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

@@ -7,15 +7,16 @@ the same seeded inputs go through the reference's scans and through the
 plain versions, which compute what the kernels compute: the ACS with its
 decisions bit-packed as the reference packs them (the word layout the
 kernel writes), the traceback from packed words, and the min-sum iteration
-on the padded check-major layout the kernels read.  Every comparison is
-exact: the arithmetic rounds once per operation in the reference's order.
-The wrappers take the plain versions on CPU tensors, count no launch, and
-raise on what the kernels do not take.
+on the 16-byte check state and the sliced layout the kernels read.  Every
+comparison is exact: the arithmetic rounds once per operation in the
+reference's order.  The wrappers take the plain versions on CPU tensors,
+count no launch, and raise on what the kernels do not take.
 """
 
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,14 +169,14 @@ def _cfg(C, fec_blocks=2):
 
 def _plain_decode(cfg, llr, iterations):
     """minsum_iteration_reference iterated, the final variable sum, the
-    hard decision: (hard, ok, c2v after the first iteration)."""
-    dg, llr_t, totals, c2v = TLD._start(cfg, torch.from_numpy(llr))
+    hard decision: (hard, ok, the messages after the first iteration)."""
+    dg, llr_s, totals, state = TLD._start(cfg, torch.from_numpy(llr))
     first = None
     for _ in range(iterations):
-        c2v = TLD.minsum_iteration_reference(dg, llr_t, c2v, totals)
-        first = c2v if first is None else first
-    TLD.variable_totals_reference(dg, llr_t, c2v, totals)
-    hard, ok = TLD._finish(cfg, totals)
+        state = TLD.minsum_iteration_reference(dg, llr_s, state, totals)
+        first = TLD.expand_c2v(dg, state) if first is None else first
+    TLD.variable_totals_reference(dg, llr_s, state, totals)
+    hard, ok = TLD._finish(dg, totals)
     return hard.numpy(), ok.numpy(), first
 
 
@@ -191,18 +192,21 @@ def _awgn_llrs(seed, n):
     return (2 * y / sigma ** 2).astype(np.float32), fec
 
 
+def _case_llrs(case):
+    """(llr [n, nldpc], iterations) of the short 2/3 code: 3 codewords the
+    decoder corrects, or 2 blocks of pure noise it cannot."""
+    if case == "awgn":
+        return _awgn_llrs(4, 3)[0], 30
+    return np.random.default_rng(5).normal(
+        0, 1, (2, _cfg(TC).nldpc)).astype(np.float32), 10
+
+
 @pytest.mark.parametrize("case", ["awgn", "noise"])
 def test_minsum_iteration_equals_jax_decode(case):
     """The plain iteration, iterated, gives the reference decode's hard
     bits and ok: every block corrected through AWGN, none on pure noise
     (unconverged bits equal all the same)."""
-    if case == "awgn":
-        llr, fec = _awgn_llrs(4, 3)
-        its = 30
-    else:
-        llr = np.random.default_rng(5).normal(
-            0, 1, (2, _cfg(TC).nldpc)).astype(np.float32)
-        its = 10
+    llr, its = _case_llrs(case)
     n = llr.shape[0]
     jh, jok = JLD.jit_decode(_cfg(JC, n), its)(jnp.asarray(llr))
     hard, ok, _ = _plain_decode(_cfg(TC, n), llr, its)
@@ -210,59 +214,201 @@ def test_minsum_iteration_equals_jax_decode(case):
     np.testing.assert_array_equal(ok, np.asarray(jok))
     if case == "awgn":
         assert ok.all()
+        fec = _awgn_llrs(4, 3)[1]
         np.testing.assert_array_equal(hard, fec)
     else:
         assert not ok.any()
 
 
+def _jax_one_iter(g, nldpc, llr, c2v):
+    """A jax.numpy transcription of the reference's ``one_iter``
+    (dtv_utils_tpu/ops/ldpc_decode.py:90-110) on its ``_graph``: c2v
+    [b, E] → the next c2v."""
+    var, chk = jnp.asarray(g["var"]), jnp.asarray(g["chk"])
+    n_par = g["n_parity"]
+
+    def seg_min(x):
+        return jax.ops.segment_min(x.T, chk, num_segments=n_par).T
+
+    def seg_sum(x, idx, num):
+        return jax.ops.segment_sum(x.T, idx, num_segments=num).T
+
+    totals = llr + seg_sum(c2v, var, nldpc)
+    v2c = jnp.take(totals, var, axis=1) - c2v
+    mag = jnp.abs(v2c)
+    neg = (v2c < 0).astype(jnp.int32)
+    m1 = seg_min(mag)
+    m1e = jnp.take(m1, chk, axis=1)
+    is_min = mag <= m1e
+    n_min = seg_sum(is_min.astype(jnp.int32), chk, n_par)
+    m2 = seg_min(jnp.where(is_min, jnp.float32(1e30), mag))
+    sign_par = seg_sum(neg, chk, n_par) % 2
+    other = jnp.where(is_min & (jnp.take(n_min, chk, axis=1) == 1),
+                      jnp.take(m2, chk, axis=1), m1e)
+    s = 1.0 - 2.0 * ((jnp.take(sign_par, chk, axis=1) ^ neg)
+                     .astype(jnp.float32))
+    return JLD.MINSUM_SCALE * s * other
+
+
+@pytest.mark.parametrize("case", ["awgn", "noise"])
+def test_expand_c2v_equals_jax_one_iter(case):
+    """After iterations 1 and 2 the messages the check state rebuilds are
+    the reference iteration's, in edge order, bit for bit."""
+    llr, _ = _case_llrs(case)
+    n = llr.shape[0]
+    jcfg, tcfg = _cfg(JC, n), _cfg(TC, n)
+    g = JLD._graph(jcfg)
+    c2v = jnp.zeros((n, g["n_edges"]), jnp.float32)
+    dg, llr_s, totals, state = TLD._start(tcfg, torch.from_numpy(llr))
+    for _ in range(2):
+        c2v = _jax_one_iter(g, jcfg.nldpc, jnp.asarray(llr), c2v)
+        TLD._variable_totals(dg, llr_s, state, totals)
+        state = TLD._check_update(dg, totals, state)
+        got = TLD.expand_c2v(dg, state)
+        assert got.shape == (g["n_edges"], n)
+        np.testing.assert_array_equal(got.T.numpy().view(np.uint32),
+                                      np.asarray(c2v).view(np.uint32))
+
+
+def _check_rule(v2c):
+    """The reference's check rule on one check's v2c (float32 numpy)."""
+    mag = np.abs(v2c)
+    neg = v2c < 0
+    m1 = mag.min()
+    is_min = mag <= m1
+    m2 = np.where(is_min, np.float32(1e30), mag).min()
+    other = np.where(is_min & (is_min.sum() == 1), m2, m1)
+    s = 1.0 - 2.0 * (neg.sum() % 2 ^ neg)
+    return (np.float32(TLD.MINSUM_SCALE) * s.astype(np.float32)
+            * other).astype(np.float32)
+
+
+TIE_CASES = {
+    "two_equal_minima": [3.0, -1.0, 2.0, 1.0, -5.0],
+    "all_equal": [-2.0, 2.0, 2.0, -2.0, 2.0],
+    "zero_magnitudes": [0.0, 4.0, -3.0, 0.0, 1.0],
+    "one_zero": [-4.0, 0.0, 3.0, -1.5, 2.5],
+    "negative_zero": [-0.0, 1.0, -2.0, 3.0, -0.0],
+    "unique_minimum": [7.0, -6.0, 0.25, 5.0, -9.0],
+    "unique_minimum_last": [7.0, -6.0, 5.0, 9.0, -0.5],
+}
+
+
+def _tie_values(name, deg):
+    """The case's v2c over a check of degree ``deg``: "all_equal" repeated
+    over every slot, the others followed by larger magnitudes."""
+    v = np.asarray(TIE_CASES[name], np.float32)
+    if name == "all_equal":
+        return np.resize(v, deg)
+    return np.concatenate([v, 50.0 + np.arange(deg - len(v),
+                                               dtype=np.float32)])
+
+
+@pytest.mark.parametrize("name", sorted(TIE_CASES))
+def test_state_rebuilds_ties_exactly(name):
+    """One check's v2c set through its variables' totals (the first
+    messages are +0.0, so v2c = totals): the state rebuilds the
+    reference's messages bit for bit, ties, zeros and -0.0 included, with
+    the slots rotated in each codeword of the batch; the all-zero state
+    rebuilds +0.0."""
+    cfg = _cfg(TC, 3)
+    dg, llr_s, totals, state = TLD._start(cfg, torch.zeros(3, cfg.nldpc))
+    assert not TLD.expand_c2v(dg, state).numpy().view(np.uint32).any()
+    t = TLD._tables(cfg)
+    p = int(np.argmin(np.diff(t["chk_start"])))
+    edges = np.arange(t["chk_start"][p], t["chk_start"][p + 1])
+    vals = _tie_values(name, len(edges))
+    tot = np.random.default_rng(0).normal(0, 3, (cfg.nldpc, 3)).astype(
+        np.float32)
+    for b in range(3):
+        tot[t["edge_var"][edges], b] = np.roll(vals, b)
+    state = TLD._check_update(dg, TLD._to_slices(torch.from_numpy(tot), 32),
+                              state)
+    got = TLD.expand_c2v(dg, state).numpy()[edges]
+    for b in range(3):
+        np.testing.assert_array_equal(got[:, b].view(np.uint32),
+                                      _check_rule(np.roll(vals, b))
+                                      .view(np.uint32))
+
+
+@pytest.mark.parametrize("batch,cols", [(1, 32), (31, 32), (32, 32),
+                                        (33, 32), (202, 32), (202, 64)])
+def test_slices_layout_round_trip(batch, cols):
+    """_to_slices puts row r, codeword b at slice b // cols, offset
+    r·w + b % cols (w the slice's width, the last one ragged), and
+    _from_slices inverts it."""
+    rows = 5
+    x = torch.arange(rows * batch, dtype=torch.int64).view(rows, batch)
+    flat = TLD._to_slices(x, cols)
+    assert flat.shape == (rows * batch,) and flat.is_contiguous()
+    for r, b in ((0, 0), (rows - 1, batch - 1), (2, batch // 2)):
+        s = b // cols
+        w = min(cols, batch - s * cols)
+        assert flat[s * rows * cols + r * w + b % cols] == x[r, b]
+    assert torch.equal(TLD._from_slices(flat, rows, batch, cols), x)
+
+
 def test_var_slots_cover_each_edge_once_in_order():
-    """The kernel's per-variable table: every real slot once, each
-    variable's slots rising (ascending edge order), -1 only past a
-    variable's degree, and the same slots as the plain version's
-    columns."""
+    """The kernel's variable table ``var_pairs``: every edge once as
+    (check, slot), each variable's edges rising (ascending edge order),
+    -1 only past a variable's degree, and the same edges as the plain
+    version's columns."""
     cfg = _cfg(TC)
-    g, p = TLD._graph(cfg), TLD._padded(cfg)
-    vs = p["var_slots"]
-    assert vs.dtype == np.int32 and vs.shape[1] == cfg.nldpc
-    real = vs[vs >= 0]
+    g, t = TLD._graph(cfg), TLD._tables(cfg)
+    vp = t["var_pairs"]
+    assert vp.dtype == np.int32 and vp.shape[1] == cfg.nldpc
+    on = vp >= 0
+    edge = np.where(on, t["chk_start"][vp >> TLD.PAIR_SHIFT]
+                    + (vp & ((1 << TLD.PAIR_SHIFT) - 1)), -1)
+    real = edge[on]
     assert len(real) == g["n_edges"] and len(np.unique(real)) == len(real)
-    deg = (vs >= 0).sum(0)
-    np.testing.assert_array_equal(deg, np.bincount(g["var"]))
-    for d in range(1, len(vs)):
-        on = vs[d] >= 0
-        assert (vs[d - 1][on] >= 0).all() and (vs[d][on] > vs[d - 1][on]).all()
-    for d, row in enumerate(vs):
-        on = row >= 0
-        np.testing.assert_array_equal(p["slot_var"][row[on]],
-                                      np.nonzero(on)[0])
-    np.testing.assert_array_equal(
-        np.sort(real), np.sort(np.concatenate([s for _, s in p["columns"]])))
+    np.testing.assert_array_equal(on.sum(0), np.bincount(g["var"]))
+    for d in range(1, len(vp)):
+        assert (on[d - 1][on[d]]).all() and (edge[d][on[d]]
+                                             > edge[d - 1][on[d]]).all()
+    for d, (n_d, e) in enumerate(t["columns"]):
+        np.testing.assert_array_equal(edge[d, :n_d], e)
+        np.testing.assert_array_equal(t["edge_var"][e], np.arange(n_d))
+        assert not on[d, n_d:].any()
 
 
 def test_ldpc_check_bound_counts_real_edges():
-    """``chip_smoke.ldpc_bounds``'s check-kernel bound at BBC is the work
-    min-sum needs: totals read once, each real edge's message read and
-    written and its slot read, by bytes; the padding of each check to D
-    slots (the kernel's layout) is not counted."""
+    """``chip_smoke.ldpc_bounds`` at BBC counts, by bytes, what the kernels
+    carry: check — totals read, 16 bytes of state read and written per
+    check and codeword, the CSR list of the real edges; variable — the
+    state read, llr read, totals written, the [Dv, nldpc] table.  The
+    message yardstick (one float message per real edge) stays beside
+    it."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     cfg = smoke.dvbt2_bbc()
-    g, D, batch = TLD._graph(cfg), TLD._padded(cfg)["D"], 202
-    edges = g["n_edges"]
-    ms, by = smoke.ldpc_bounds(batch, cfg.nldpc, edges)["ldpc_check"]
-    nbytes = 4 * (cfg.nldpc + 1) * batch + 8 * edges * batch + 8 * edges
-    assert by == "bytes"
-    assert ms == pytest.approx(nbytes / smoke.HBM_BYTES_PER_S * 1e3,
-                               rel=1e-12)
-    assert edges < g["n_parity"] * D
+    g, t, batch = TLD._graph(cfg), TLD._tables(cfg), 202
+    edges, n_par, dv = g["n_edges"], g["n_parity"], t["var_pairs"].shape[0]
+    assert (edges, n_par, dv) == (215_999, 21_600, 13)
+    bounds = smoke.ldpc_bounds(batch, cfg.nldpc, n_par, edges, dv)
+    want = {"ldpc_check": 4 * cfg.nldpc * batch + 32 * n_par * batch
+            + 4 * (n_par + 1) + 4 * edges,
+            "ldpc_variable": 16 * n_par * batch + 8 * cfg.nldpc * batch
+            + 4 * dv * cfg.nldpc}
+    assert want == {"ldpc_check": 192_931_200, "ldpc_variable": 177_897_600}
+    for name, nbytes in want.items():
+        ms, by = bounds[name]
+        assert by == "bytes"
+        assert ms == pytest.approx(nbytes / smoke.HBM_BYTES_PER_S * 1e3,
+                                   rel=1e-12)
+    old = smoke.ldpc_message_bounds(batch, cfg.nldpc, edges)
+    assert old["ldpc_check"] == pytest.approx(
+        (4 * (cfg.nldpc + 1) * batch + 8 * edges * batch + 8 * edges)
+        / smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert old["ldpc_check"] > 2 * bounds["ldpc_check"][0]
 
 
 def test_ldpc_wrappers_take_plain_version_on_cpu():
     """decode on the CPU is the plain iteration: same hard bits, ok and
     first-iteration messages, no launch; the check wrapper returns the
-    plain version's new tensor."""
+    plain version's new tensors."""
     llr, _ = _awgn_llrs(6, 2)
     cfg = _cfg(TC)
     before = dict(TLD.LAUNCHES)
@@ -271,26 +417,35 @@ def test_ldpc_wrappers_take_plain_version_on_cpu():
     assert TLD.LAUNCHES == before
     np.testing.assert_array_equal(hard.numpy(), want_h)
     np.testing.assert_array_equal(ok.numpy(), want_ok)
-    dg, llr_t, totals, c2v = TLD._start(cfg, torch.from_numpy(llr))
-    TLD._variable_totals(dg, llr_t, c2v, totals)
-    out = TLD._check_update(dg, totals, c2v)
-    assert out is not c2v and torch.equal(out, first)
+    dg, llr_s, totals, state = TLD._start(cfg, torch.from_numpy(llr))
+    TLD._variable_totals(dg, llr_s, state, totals)
+    out = TLD._check_update(dg, totals, state)
+    assert all(o is not s for o, s in zip(out, state))
+    assert torch.equal(TLD.expand_c2v(dg, out), first)
     assert TLD.LAUNCHES == before
 
 
 def test_ldpc_wrappers_reject():
     cfg = _cfg(TC)
-    dg, llr_t, totals, c2v = TLD._start(cfg, torch.zeros(2, cfg.nldpc))
+    dg, llr_s, totals, state = TLD._start(cfg, torch.zeros(2, cfg.nldpc))
+    m1, m2, meta = state
     with pytest.raises(TypeError, match="float32"):
-        TLD._variable_totals(dg, llr_t.double(), c2v, totals)
-    with pytest.raises(ValueError, match="do not fit"):
-        TLD._variable_totals(dg, llr_t, c2v, totals[:-1])
-    with pytest.raises(ValueError, match="do not fit"):
-        TLD._check_update(dg, totals, c2v[:, :-1].contiguous())
+        TLD._variable_totals(dg, llr_s.double(), state, totals)
+    with pytest.raises(TypeError, match="int64"):
+        TLD._check_update(dg, totals, (m1, m2, meta.int()))
+    with pytest.raises(ValueError, match="do not fit|does not fit"):
+        TLD._variable_totals(dg, llr_s, state, totals[:-1])
+    with pytest.raises(ValueError, match="does not fit"):
+        TLD._check_update(dg, totals, (m1[:-2], m2, meta))
     with pytest.raises(ValueError, match="contiguous"):
-        TLD._check_update(dg, totals, c2v.transpose(0, 2))
+        TLD._check_update(dg, totals.view(-1, 2).T.reshape(2, -1)[0],
+                          state)
     with pytest.raises(ValueError, match="tables on"):
-        TLD._check_update(dg, totals.to("meta"), c2v.to("meta"))
-    meta = {**dg, "slot_var": dg["slot_var"].to("meta")}
+        TLD._check_update(dg, totals.to("meta"), state)
+    meta_dg = {**dg, "var_pairs": dg["var_pairs"].to("meta")}
     with pytest.raises(ValueError, match="unsupported device"):
-        TLD._check_update(meta, totals.to("meta"), c2v.to("meta"))
+        TLD._check_update(meta_dg, totals.to("meta"),
+                          tuple(x.to("meta") for x in state))
+    with pytest.raises(ValueError, match="sign bits"):
+        TLD._check_update({**dg, "D": TLD.MAX_CHECK_DEGREE + 1}, totals,
+                          state)

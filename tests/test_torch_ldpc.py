@@ -55,18 +55,68 @@ def test_graph_equal(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_variable_table_reads_each_edge_once(name):
-    """The prefix columns of the variable-side table hold every edge's
-    slot exactly once, each variable's in ascending edge order."""
+    """The prefix columns of the variable-side table hold every edge
+    exactly once, each variable's in ascending edge order, and the
+    kernel's ``var_pairs`` names the same edges as (check, slot)."""
     cfg = _cfg(TC, name)
-    g, p = TLD._graph(cfg), TLD._padded(cfg)
-    slots = np.concatenate([s for _, s in p["columns"]])
-    assert len(slots) == g["n_edges"] and len(np.unique(slots)) == len(slots)
-    cols = [c for n_d, s in p["columns"] for c in s.reshape(-1, n_d)]
-    assert len(cols[0]) == cfg.nldpc
-    for c in cols:                       # column d: variables 0 .. n_d - 1
-        np.testing.assert_array_equal(p["slot_var"][c], np.arange(len(c)))
-    for a, b in zip(cols, cols[1:]):     # slots rise with the edge index
-        assert (b > a[:len(b)]).all()
+    g, t = TLD._graph(cfg), TLD._tables(cfg)
+    edges = np.concatenate([e for _, e in t["columns"]])
+    assert len(edges) == g["n_edges"] and len(np.unique(edges)) == len(edges)
+    assert len(t["columns"][0][1]) == cfg.nldpc
+    for n_d, e in t["columns"]:          # column d: variables 0 .. n_d - 1
+        np.testing.assert_array_equal(g["var"][e], np.arange(n_d))
+    for (_, a), (_, b) in zip(t["columns"], t["columns"][1:]):
+        assert (b > a[:len(b)]).all()    # edges rise with the column
+    vp = t["var_pairs"]
+    for d, (n_d, e) in enumerate(t["columns"]):
+        np.testing.assert_array_equal(vp[d, :n_d] >> TLD.PAIR_SHIFT,
+                                      g["chk"][e])
+        np.testing.assert_array_equal(
+            vp[d, :n_d] & ((1 << TLD.PAIR_SHIFT) - 1),
+            e - t["chk_start"][g["chk"][e]])
+        assert (vp[d, n_d:] == -1).all()
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_csr_tables_cover_each_edge_once(name):
+    """The check side: ``chk_start`` cuts the check-sorted edges into each
+    check's slots, ``edge_var`` is the reference's variable list, every
+    edge once; the syndrome's padded ``slot_var`` holds the same edges."""
+    cfg = _cfg(TC, name)
+    g, t = TLD._graph(cfg), TLD._tables(cfg)
+    start = t["chk_start"]
+    assert start[0] == 0 and start[-1] == g["n_edges"]
+    deg = np.diff(start)
+    assert (deg >= 1).all() and deg.max() == t["D"]
+    np.testing.assert_array_equal(np.repeat(np.arange(g["n_parity"]), deg),
+                                  g["chk"])
+    np.testing.assert_array_equal(t["edge_var"], g["var"])
+    np.testing.assert_array_equal(t["edge_slot"],
+                                  np.arange(g["n_edges"]) - start[g["chk"]])
+    sv = t["slot_var"].reshape(g["n_parity"], t["D"])
+    for p in (0, 1, g["n_parity"] // 2, g["n_parity"] - 1):
+        np.testing.assert_array_equal(sv[p, :deg[p]],
+                                      g["var"][start[p]:start[p + 1]])
+        assert (sv[p, deg[p]:] == cfg.nldpc).all()
+
+
+T2_CODES = [(f, r) for f in ("NORMAL", "SHORT")
+            for r in ("R1_2", "R3_5", "R2_3", "R3_4", "R4_5", "R5_6")]
+
+
+@pytest.mark.parametrize("frame,rate", T2_CODES)
+def test_check_degree_fits_meta(frame, rate):
+    """Every one of the twelve T2 codes has checks of at most
+    MAX_CHECK_DEGREE slots, the sign bits the check state's meta holds
+    below its unique-slot field (which must also name NO_UNIQUE)."""
+    cfg = TC.Dvbt2Config(frame_size=TC.T2FrameSize[frame],
+                         code_rate=TC.T2CodeRate[rate], fec_blocks=1,
+                         ti_blocks=1)
+    t = TLD._tables(cfg)
+    assert 14 <= t["D"] <= 42 <= TLD.MAX_CHECK_DEGREE
+    assert TLD.NO_UNIQUE >= TLD.MAX_CHECK_DEGREE
+    assert TLD.NO_UNIQUE < 1 << (63 - TLD.SLOT_SHIFT)
+    assert t["var_pairs"].shape[0] <= 13
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -137,28 +137,40 @@ def test_viterbi_kernels_tied_metrics(k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["awgn", "noise"])
+@pytest.mark.parametrize("case", ["awgn", "noise", "ragged"])
 def test_ldpc_kernels_equal_plain(case):
     """Three iterations step by step: the variable kernel's totals and the
-    check kernel's messages equal the plain versions' on the card."""
+    check kernel's state (m1, m2, meta) and the messages it rebuilds equal
+    the plain versions' on the card; "ragged" decodes 31 blocks (a slice
+    of 31 codewords, blade's count)."""
     _need_cuda()
     rng = np.random.default_rng(19)
-    if case == "awgn":
-        llr = _t2_awgn_llrs(rng)[0]
-    else:
+    if case == "noise":
         llr = torch.from_numpy(rng.normal(0, 1, (3, T2_CFG.nldpc)).astype(
             np.float32))
-    dg, llr_t, totals, c2v = LD._start(T2_CFG, llr.cuda())
-    plain_totals, plain_c2v = totals.clone(), c2v.clone()
+    else:
+        llr = _t2_awgn_llrs(rng, 31 if case == "ragged" else 3)[0]
+    dg, llr_s, totals, state = LD._start(T2_CFG, llr.cuda())
+    plain_totals = totals.clone()
+    plain_state = tuple(x.clone() for x in state)
     before = dict(LD.LAUNCHES)
     for _ in range(3):
-        LD._variable_totals(dg, llr_t, c2v, totals)
-        LD.variable_totals_reference(dg, llr_t, plain_c2v, plain_totals)
+        LD._variable_totals(dg, llr_s, state, totals)
+        LD.variable_totals_reference(dg, llr_s, plain_state, plain_totals)
         assert torch.equal(totals, plain_totals)
-        c2v = LD._check_update(dg, totals, c2v)
-        plain_c2v = LD.check_update_reference(dg, plain_totals, plain_c2v)
-        assert torch.equal(c2v, plain_c2v)
-    assert LD.LAUNCHES == {key: n + 3 for key, n in before.items()}
+        state = LD._check_update(dg, totals, state)
+        plain_state = LD.check_update_reference(dg, plain_totals,
+                                                plain_state)
+        for a, b in zip(state, plain_state):
+            assert torch.equal(a, b)
+        assert torch.equal(LD.expand_c2v(dg, state),
+                           LD.expand_c2v(dg, plain_state))
+    LD._variable_totals(dg, llr_s, state, totals)
+    assert LD.LAUNCHES == {"ldpc_check": before["ldpc_check"] + 3,
+                           "ldpc_variable": before["ldpc_variable"] + 4}
+    hard, ok = LD._finish(dg, totals)
+    want = LD.decode(T2_CFG, llr, iterations=3)
+    assert torch.equal(hard.cpu(), want[0]) and torch.equal(ok.cpu(), want[1])
 
 
 @pytest.mark.gpu
@@ -233,9 +245,9 @@ def _t2_iq(snr_db):
     return ts, (iq if snr_db is None else _awgn(iq, snr_db, 7))
 
 
-def _t2_awgn_llrs(rng):
-    """T2_CFG codewords through BPSK at 2.5 dB Es/N0: (llr, codewords)."""
-    bb = torch.from_numpy(rng.integers(0, 2, (3, T2_CFG.kbch)).astype(
+def _t2_awgn_llrs(rng, n=3):
+    """n T2_CFG codewords through BPSK at 2.5 dB Es/N0: (llr, codewords)."""
+    bb = torch.from_numpy(rng.integers(0, 2, (n, T2_CFG.kbch)).astype(
         np.uint8))
     fec = TX2.fec_encode(T2_CFG, bb)
     sigma = np.sqrt(1 / (2 * 10 ** (2.5 / 10)))
