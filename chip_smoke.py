@@ -123,6 +123,7 @@ FIR_SETS = 6                            # 6 x 43.35 MB: more than the L2
 FIR_TIMED = 24                          # launches per timing
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 FP32_FLOPS = 67e12                      # fp32 outside the tensor cores
+FP32_LANES_PER_SM = 128                 # fp32 instructions per SM and clock
 N_STREAMS = 4                           # bench.py's serving shape
 TIMED_ROUNDS = 25                       # per repeat; 3 repeats show the spread
 DVBT_IQ_REL = 1e-4                      # max|d|/rms, card IQ vs the JAX CPU's
@@ -1521,25 +1522,42 @@ def _captured_acs(fn) -> list[tuple]:
     return seen
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+def _bound(nbytes: float, ops: float,
+           ops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
     """Least ms on an H100 SXM for ``nbytes`` moved and ``ops`` fp32
-    operations, and which of the two sets it."""
+    operations at ``ops_per_s``, and which of the two sets it."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
 
-def viterbi_bounds(L: int, B: int, S: int) -> dict[str, tuple[float, str]]:
+def fp32_instruction_rate(dev) -> float:
+    """fp32 instructions per second the card can issue: 128 per SM and
+    clock (an add, compare, select or max is one, an FMA too) times its SMs
+    times the SM clock nvidia-smi reports as its maximum."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[dev.index]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return FP32_LANES_PER_SM * sms * float(mhz) * 1e6
+
+
+def viterbi_bounds(L: int, B: int, S: int, ops_per_s: float = FP32_FLOPS
+                   ) -> dict[str, tuple[float, str]]:
     """ACS: pairs read, packed decisions and final metrics written; per
     step and block 2 (s, d) + 2S (cand) + S (compare) + S (select) + S - 1
-    (max) + S (subtract) fp32 operations.  Traceback: decisions and final
+    (max) + S (subtract) fp32 operations, none of them an FMA, so counted
+    at the fp32 instruction rate (``fp32_instruction_rate``); at the
+    default 67 TFLOP/s, which counts an FMA as two, they give the earlier
+    yardstick, the kernels JSON's ``bound_ms``.  Traceback: decisions and final
     metrics read, bits written; S - 1 compares per block (the walk is
     integer work)."""
     return {"viterbi_acs": _bound(L * B * 8 + L * B * S // 8 + B * S * 4,
-                                  L * B * (6 * S + 1)),
+                                  L * B * (6 * S + 1), ops_per_s),
             "viterbi_traceback": _bound(L * B * S // 8 + B * S * 4 + L * B,
-                                        B * (S - 1))}
+                                        B * (S - 1), ops_per_s)}
 
 
 def ldpc_bounds(batch: int, nldpc: int, n_par: int, n_edges: int,
@@ -1611,10 +1629,13 @@ def _report(name: str, label: str, t: dict, bound: tuple[float, str],
           f"on {card}")
 
 
-def check_viterbi_kernels(label: str, args: tuple, card: str) -> dict:
+def check_viterbi_kernels(label: str, args: tuple, card: str,
+                          instr_per_s: float) -> dict:
     """The ACS and traceback kernels against their plain versions on the
     card, on the main path's pairs: packed decisions, final metrics and
-    bits bit for bit; then their times beside their bounds."""
+    bits bit for bit; then their times beside their bounds (operations at
+    ``instr_per_s``, and the 67 TFLOP/s yardstick) and ns per
+    trellis step."""
     from dtv_utils_torch.ops import viterbi
 
     pairs, k, g1, g2 = args
@@ -1641,7 +1662,8 @@ def check_viterbi_kernels(label: str, args: tuple, card: str) -> dict:
     pair_sets = [pairs] + [pairs.clone() for _ in range(DEC_SETS - 1)]
     tb_sets = [(packed, final)] + [(packed.clone(), final.clone())
                                    for _ in range(DEC_SETS - 1)]
-    bounds = viterbi_bounds(L, B, S)
+    bounds = viterbi_bounds(L, B, S, instr_per_s)
+    flops = viterbi_bounds(L, B, S)
     out = {}
     for name, sets, plain in (
             ("viterbi_acs",
@@ -1654,8 +1676,13 @@ def check_viterbi_kernels(label: str, args: tuple, card: str) -> dict:
              lambda: viterbi.traceback_reference(packed, final, k))):
         t = _timed(sets, plain)
         _report(name, label, t, bounds[name], card)
-        out[name] = dict(t, bound=bounds[name], max_abs_err=err[name],
-                         shape=dict(L=L, B=B, K=k))
+        print(f"{name} ({label}): {1e6 * t['cold'] / L:.2f} ns per trellis "
+              f"step cold, {1e6 * t['warm'] / L:.2f} warm; the bound above "
+              f"counts operations at the fp32 instruction rate; "
+              f"{flops[name][0] / t['cold']:.3f} of the {flops[name][0]:.5f}"
+              f" ms bound at 67 TFLOP/s ({flops[name][1]})")
+        out[name] = dict(t, bound=flops[name], instr_bound=bounds[name],
+                         max_abs_err=err[name], shape=dict(L=L, B=B, K=k))
     return out
 
 
@@ -1800,8 +1827,30 @@ def coded_llrs(cfg, blocks: int, es_n0_db: float, seed: int,
     return 2 * (1.0 - 2.0 * fec + noise) / sigma ** 2
 
 
+def viterbi_args(dev, dvbt_iq: np.ndarray, j83b_iq: np.ndarray) -> dict:
+    """The (pairs, k, g1, g2) the receivers hand ``ops.viterbi._acs``, by
+    case, with a label: the flagship's 2 superframes at RX_DVBT_SNR_DB
+    (K=7) and J.83B's 2 superblocks at RX_J83B_SNR_DB (K=5)."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.rx import j83b as rxq
+
+    noisy = torch.from_numpy(awgn(dvbt_iq, RX_DVBT_SNR_DB,
+                                  RX_NOISE_SEED)).to(dev)
+    (dvbt,) = _captured_acs(
+        lambda: rxd.demodulate_stream(dvbt_flagship(), noisy, device=dev))
+    del noisy
+    jnoisy = torch.from_numpy(awgn(j83b_iq, RX_J83B_SNR_DB,
+                                   RX_NOISE_SEED)).to(dev)
+    (j83b,) = _captured_acs(
+        lambda: rxq.trellis_decode(rxq.front(J83bConfig(), jnoisy)))
+    return {"dvbt": ("dvbt flagship 2 superframes", dvbt),
+            "j83b": ("j83b 2 superblocks", j83b)}
+
+
 def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
-                          j83b_iq: np.ndarray, dvbt2_iq: np.ndarray) -> dict:
+                          j83b_iq: np.ndarray, dvbt2_iq: np.ndarray,
+                          instr_per_s: float) -> dict:
     """Each decoder kernel against its plain version on the card at full
     width, bit for bit, and timed: the Viterbi on the flagship's 2
     superframes at RX_DVBT_SNR_DB (K=7) and on J.83B's 2 superblocks at
@@ -1810,29 +1859,14 @@ def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
     (also timed at 32 and 64 codewords per slice) and on pure noise, on
     blade's 31 coded blocks (a ragged slice) and on pure noise of the
     SHORT 5/6 code (D = 42).  Returns the timings by kernel and case."""
-    from dtv_utils_torch.core.config import J83bConfig, T2CodeRate, T2FrameSize
+    from dtv_utils_torch.core.config import T2CodeRate, T2FrameSize
     from dtv_utils_torch.models.dvbt2 import PROFILES
-    from dtv_utils_torch.rx import dvbt as rxd
     from dtv_utils_torch.rx import dvbt2 as rx2
-    from dtv_utils_torch.rx import j83b as rxq
     from dtv_utils_torch.tx import dvbt2 as t2
 
-    cfg = dvbt_flagship()
-    noisy = torch.from_numpy(awgn(dvbt_iq, RX_DVBT_SNR_DB,
-                                  RX_NOISE_SEED)).to(dev)
-    (dvbt_args,) = _captured_acs(
-        lambda: rxd.demodulate_stream(cfg, noisy, device=dev))
-    del noisy
-    res = {"dvbt": check_viterbi_kernels("dvbt flagship 2 superframes",
-                                         dvbt_args, card)}
-    del dvbt_args
-    jnoisy = torch.from_numpy(awgn(j83b_iq, RX_J83B_SNR_DB,
-                                   RX_NOISE_SEED)).to(dev)
-    (j83b_args,) = _captured_acs(
-        lambda: rxq.trellis_decode(rxq.front(J83bConfig(), jnoisy)))
-    res["j83b"] = check_viterbi_kernels("j83b 2 superblocks", j83b_args,
-                                        card)
-    del j83b_args, jnoisy
+    res = {case: check_viterbi_kernels(label, args, card, instr_per_s)
+           for case, (label, args) in viterbi_args(dev, dvbt_iq,
+                                                   j83b_iq).items()}
     bbc = dvbt2_bbc()
     spf = t2.samples_per_frame(bbc)
     body = awgn(dvbt2_iq, RX_DVBT2_SNR_DB, RX_NOISE_SEED)[2048:spf]
@@ -2585,7 +2619,12 @@ def main() -> int:
     # the card at full width, bit for bit, and their times beside their
     # bounds
     t_dec = time.perf_counter()
-    dec = check_decoder_kernels(dev, card, dvbt_iq, iq, dvbt2_iq)
+    instr_per_s = fp32_instruction_rate(dev)
+    print(f"fp32 instruction rate: {instr_per_s / 1e12:.3f} T/s "
+          f"({FP32_LANES_PER_SM} per SM and clock at the card's maximum SM "
+          f"clock), on {card}")
+    dec = check_decoder_kernels(dev, card, dvbt_iq, iq, dvbt2_iq,
+                                instr_per_s)
     print(f"decoder kernel phase: {time.perf_counter() - t_dec:.1f} s")
 
     # 7. the receivers: loop-back of the IQ above, clean and through AWGN,
@@ -2745,6 +2784,10 @@ def main() -> int:
             "plain_ms": m["plain"], "bound_ms": m["bound"][0],
             "bound_by": m["bound"][1], "library_ms": m["library"],
             "shape": m["shape"]}
+        if "instr_bound" in m:
+            entry |= {"instr_bound_ms": m["instr_bound"][0],
+                      "instr_bound_by": m["instr_bound"][1],
+                      "ns_per_step_cold": 1e6 * m["cold"] / m["shape"]["L"]}
         if "message_bound_ms" in m:
             entry |= {"message_bound_ms": m["message_bound_ms"],
                       "decode_peak_mb": m["decode_peak_mb"],
@@ -2755,6 +2798,10 @@ def main() -> int:
             entry[c] = {k: x[k] for k in ("cold", "warm", "plain", "library",
                                           "shape")} | {
                 "bound_ms": x["bound"][0]}
+            if "instr_bound" in x:
+                entry[c] |= {"instr_bound_ms": x["instr_bound"][0],
+                             "ns_per_step_cold":
+                             1e6 * x["cold"] / x["shape"]["L"]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

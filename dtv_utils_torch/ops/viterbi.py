@@ -61,7 +61,9 @@ J83B_K, J83B_G1, J83B_G2 = 5, 0o25, 0o37
 # margin); punctured callers scale it with seam_overlap().
 OVERLAP = 96
 
-KERNEL_K = (5, 7)            # constraint lengths csrc/viterbi.cu is built for
+# The codes csrc/viterbi.cu is built for, K: (g1, g2); its ACS fixes the
+# branch metrics' signs at compile time.
+KERNEL_CODES = {DVBT_K: (DVBT_G1, DVBT_G2), J83B_K: (J83B_G1, J83B_G2)}
 
 LAUNCHES = {"viterbi_acs": 0, "viterbi_traceback": 0}
 """Kernel launches so far, per kernel (the CPU path does not count)."""
@@ -216,13 +218,15 @@ def traceback_reference(packed: torch.Tensor, final: torch.Tensor,
     return (states[1:, :, 0] >> (k - 2)).to(torch.uint8)
 
 
-def _on_card(x: torch.Tensor, k: int) -> bool:
-    """``_build.on_card``, and on the card a K the kernels are built
-    for."""
+def _on_card(x: torch.Tensor, k: int, code=None) -> bool:
+    """``_build.on_card``, and on the card a K (and a generator pair
+    ``code``, where given) the kernels are built for."""
     card = _build.on_card(x)
-    if card and k not in KERNEL_K:
-        raise ValueError(f"the Viterbi kernels are built for K in "
-                         f"{KERNEL_K}, not {k}")
+    if card and (k not in KERNEL_CODES
+                 or code not in (None, KERNEL_CODES[k])):
+        raise ValueError(f"the Viterbi kernels are built for the codes "
+                         f"(K: (g1, g2)) {KERNEL_CODES}, not K={k}, "
+                         f"{code}")
     return card
 
 
@@ -238,7 +242,7 @@ def _acs(pairs: torch.Tensor, k: int, g1: int,
                          f"{tuple(pairs.shape)}, K={k}")
     if not pairs.is_contiguous():
         raise ValueError("pairs must be contiguous")
-    if not _on_card(pairs, k):
+    if not _on_card(pairs, k, (g1, g2)):
         decs, final = acs_reference(pairs, k, g1, g2)
         return pack_decisions(decs), final
     L, B, _ = pairs.shape
@@ -258,7 +262,9 @@ def _traceback(packed: torch.Tensor, final: torch.Tensor,
                k: int) -> torch.Tensor:
     """Packed decisions uint8 [L, B, S/8] and final metrics float32 [B, S]
     (both contiguous, on one device) → bits uint8 [L, B], by the kernel on
-    the card and by ``traceback_reference`` on the CPU."""
+    the card and by ``traceback_reference`` on the CPU.  On the card the
+    decisions must start at a multiple of their S/8-byte word (any view
+    of ``_acs``'s output along L does), else the launch raises."""
     S = 1 << (k - 1)
     if packed.dtype != torch.uint8 or final.dtype != torch.float32:
         raise TypeError(f"need uint8 decisions and float32 metrics, got "
@@ -337,6 +343,9 @@ def viterbi_decode(llr_pairs: torch.Tensor, block: int = 4096,
     Punctured callers must pass ``overlap=seam_overlap(k, num, den)``
     (viterbi_decode_punctured does).  The blocks run in passes sized to
     the device's working memory; the bits do not depend on the passes.
+    On the card the kernels are built for two codes, ``KERNEL_CODES``:
+    DVB-T's K=7 (171, 133) and J.83B's K=5 (25, 37); another code raises
+    there (the CPU path takes any rate-1/2 code).
     """
     *lead, n, two = llr_pairs.shape
     if two != 2:

@@ -13,7 +13,9 @@ reference's order.  The wrappers take the plain versions on CPU tensors,
 count no launch, and raise on what the kernels do not take.
 """
 
+import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -155,6 +157,278 @@ def test_viterbi_wrappers_reject():
         TV._traceback(packed, final.to("meta"), 7)
     with pytest.raises(ValueError, match="unsupported device"):
         TV._traceback(packed.to("meta"), final.to("meta"), 7)
+
+
+# ---------------------------------------------------------------------------
+# The Viterbi kernels' schedule (csrc/viterbi.cu), modelled in NumPy
+# ---------------------------------------------------------------------------
+
+def _code(k, ns, a):
+    """branch_code of csrc/viterbi.cu: 2·(x output bit) + (y output bit) of
+    branch (ns, a), for arrays of states."""
+    _, g1, g2 = CODES[k]
+    ns = np.asarray(ns)
+    w = ((ns >> (k - 2)) << (k - 1)) | ((ns & ((1 << (k - 2)) - 1)) << 1) | a
+    par = lambda v: np.vectorize(lambda u: bin(int(u)).count("1") & 1)(v)
+    return 2 * par(w & g1) + par(w & g2)
+
+
+def _shipped_lanes(k):
+    """The lanes per block ``csrc/viterbi.cu`` ships for K."""
+    src = (Path(TV.__file__).resolve().parent.parent / "csrc"
+           / "viterbi.cu").read_text()
+    return int(re.search(rf"\bACS_LANES_K{k} = (\d+)", src).group(1))
+
+
+def _model_acs(pairs, k, lanes):
+    """The ACS kernel's schedule at ``lanes`` lanes per block: 32 / lanes
+    blocks per warp (a ragged last warp's spare lanes read block B - 1 and
+    store nothing), lane l holding the metrics of states [SPL·l,
+    SPL·l + SPL) before their normalisation and the block's max mx; each
+    step the lane takes its P = min(2·SPL, S) predecessor metrics from
+    lanes 2l and 2l + 1 (mod lanes), subtracts mx from them, adds ±A or
+    ±B (A, B picked once per lane from the linearity of the code),
+    compares strictly, keeps the larger, takes the block's max, and
+    stores its SPL decision bits: as
+    SPL / 8 little-endian bytes at byte SPL / 8 · l of the step's word, or
+    merged over 8 / SPL lanes into byte l·SPL / 8.  float32 throughout,
+    one rounding per operation."""
+    L, B, _ = pairs.shape
+    S = 1 << (k - 1)
+    spl, G = S // lanes, 32 // lanes
+    P = min(2 * spl, S)
+    nw = -(-B // G)
+    blk = np.minimum(np.arange(nw * G), B - 1).reshape(nw, G)
+    active = (np.arange(nw * G) < B).reshape(nw, G)
+    l = np.arange(lanes)
+    src0, src1 = (2 * l) % lanes, (2 * l + 1) % lanes
+    lane_code = _code(k, spl * l, 0)
+    swap = ((lane_code ^ (lane_code >> 1)) & 1).astype(bool)
+    sign = np.where(lane_code & 2, -1.0, 1.0).astype(np.float32)
+    codes = np.stack([_code(k, np.arange(spl), a) for a in (0, 1)])
+    m = np.zeros((nw, G, lanes, spl), np.float32)
+    mx = np.zeros((nw, G, 1, 1), np.float32)
+    decs = np.zeros((L, B, S // 8), np.uint8)
+    f32 = np.float32
+    for t in range(L):
+        xy = pairs[t][blk]                                  # [nw, G, 2]
+        x, y = xy[..., 0:1], xy[..., 1:2]
+        s, d = (x + y).astype(f32), (x - y).astype(f32)
+        A = (np.where(swap, d, s) * sign).astype(f32)       # [nw, G, lanes]
+        Bm = (np.where(swap, s, d) * sign).astype(f32)
+        pick = np.stack([A, Bm, -Bm, -A])                   # [4, nw, G, lanes]
+        p = np.concatenate([m[:, :, src0], m[:, :, src1]],
+                           axis=-1)[..., :P]                # raw metrics
+        p = (p - mx).astype(f32)
+        idx = np.arange(spl)
+        c0 = (p[..., (2 * idx) % P] + np.moveaxis(
+            pick[codes[0]], 0, -1)).astype(f32)
+        c1 = (p[..., (2 * idx + 1) % P] + np.moveaxis(
+            pick[codes[1]], 0, -1)).astype(f32)
+        dec = c1 > c0
+        m = np.where(dec, c1, c0)
+        mx = m.max(axis=(2, 3), keepdims=True)
+        chunk = (dec.astype(np.uint64) << np.arange(spl, dtype=np.uint64)
+                 ).sum(-1)                                  # [nw, G, lanes]
+        for w in range(nw):
+            for g in range(G):
+                if not active[w, g]:
+                    continue
+                row = decs[t, blk[w, g]]
+                for lane in range(lanes):
+                    if spl >= 8:
+                        row[spl // 8 * lane:spl // 8 * (lane + 1)] = (
+                            np.array([chunk[w, g, lane]], "<u8").view(
+                                np.uint8)[:spl // 8])
+                    elif lane % (8 // spl) == 0:
+                        row[lane * spl // 8] = sum(
+                            int(chunk[w, g, lane + r]) << (spl * r)
+                            for r in range(8 // spl))
+    final = (m - mx).astype(f32).reshape(nw * G, S)[:B]
+    return decs, final
+
+
+def _model_traceback(packed, final, k, batch=32, base=0):
+    """The traceback kernel's reads, of decisions at address ``base`` (a
+    multiple of the word's bytes): batches of ``batch`` steps from step
+    L - 1 down (whole batches read their words first, the last batch one
+    at a time); a K=7 word is 8 bytes at base + (t·B + b)·8, and its bit
+    st is taken from the high or the low half by bit 5 of st; a K=5 word
+    at a = base + (t·B + b)·2 is the high or low half, by bit 1 of a, of
+    the 4 aligned bytes at a & ~3 (2 bytes before or past the tensor
+    where it starts or ends at 2 mod 4, padded)."""
+    L, B, nb = packed.shape
+    S, H = 1 << (k - 1), 1 << (k - 2)
+    assert base % nb == 0
+    flat = np.concatenate([np.zeros(base, np.uint8), packed.reshape(-1),
+                           np.zeros(2, np.uint8)])
+    bits = np.zeros((L, B), np.uint8)
+    for b in range(B):
+        st = 0
+        for s in range(1, S):
+            if final[b, s] > final[b, st]:
+                st = s
+
+        def slot(t):
+            at = base + (t * B + b) * nb
+            if k == 7:
+                return int(flat[at:at + 8].view("<u8")[0])
+            al = at & ~3
+            return int(flat[al:al + 4].view("<u4")[0]) >> (8 * (at & 2))
+
+        for n in range(-(-L // batch)):
+            t_hi = L - 1 - n * batch
+            ts = range(t_hi, max(t_hi - batch, -1), -1)
+            words = [slot(t) for t in ts] if t_hi >= batch - 1 else None
+            for i, t in enumerate(ts):
+                w = words[i] if words is not None else slot(t)
+                bits[t, b] = st >> (k - 2)
+                if k == 7:
+                    half = (w >> 32) if st & 32 else w & 0xFFFFFFFF
+                    a = (half >> (st & 31)) & 1
+                else:
+                    a = (w >> st) & 1
+                st = ((st & (H - 1)) << 1) | a
+    return bits
+
+
+@functools.cache
+def _schedule_case(k, case):
+    """(pairs [L, B, 2], the JAX scans' decisions, final metrics, bits) of
+    a small case: L = 45 (not a multiple of the 16-step prefetch or the
+    32-step traceback batch), B = 7 (a ragged last warp at every lanes
+    per block below 32); "noise" the punctured blocked pairs (erasures
+    where punctured), "hard" ±1 LLRs with erasures (many exact ties),
+    "zeros" all erasures (every candidate tied)."""
+    L, B = 45, 7
+    if case == "noise":
+        pairs = _blocked_pairs(k, L, B, 0.7, seed=30 + k)
+    else:
+        pairs = np.zeros((L, B, 2), np.float32)
+        if case == "hard":
+            rng = np.random.default_rng(31 + k)
+            pairs = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32),
+                               (L, B, 2), p=[0.4, 0.2, 0.4])
+    jdecs, jfinal = JV._acs_scan(jnp.asarray(pairs), *CODES[k])
+    jbits = JV._traceback(jdecs, jfinal, k)
+    return pairs, np.asarray(jdecs), np.asarray(jfinal), np.asarray(jbits)
+
+
+@pytest.mark.parametrize("case", ["noise", "hard", "zeros"])
+@pytest.mark.parametrize("k,lanes", [(7, 32), (7, 16), (7, 8), (7, 4),
+                                     (5, 16), (5, 8), (5, 4), (5, 2),
+                                     (5, 1)])
+def test_kernel_schedule_equals_reference(k, lanes, case):
+    """The kernels' schedule, modelled in NumPy at every lanes per block
+    the tuning tool sweeps, writes the packed decisions, final metrics and
+    bits of
+    ``acs_reference``/``pack_decisions``/``traceback_reference`` and of
+    the reference's scans, byte for byte."""
+    pairs, jdecs, jfinal, jbits = _schedule_case(k, case)
+    decs, final = _model_acs(pairs, k, lanes)
+    want, want_final = TV.acs_reference(torch.from_numpy(pairs), *CODES[k])
+    np.testing.assert_array_equal(decs, TV.pack_decisions(want).numpy())
+    np.testing.assert_array_equal(decs, jdecs)
+    np.testing.assert_array_equal(final, want_final.numpy())
+    np.testing.assert_array_equal(final, jfinal)
+    bits = _model_traceback(decs, final, k)
+    np.testing.assert_array_equal(bits, TV.traceback_reference(
+        torch.from_numpy(decs), torch.from_numpy(final), k).numpy())
+    np.testing.assert_array_equal(bits, jbits)
+    if case == "zeros":
+        assert not decs.any() and not bits.any()
+
+
+@pytest.mark.parametrize("k", [7, 5])
+@pytest.mark.parametrize("L,B", [(1, 1), (31, 1), (33, 3)])
+def test_kernel_schedule_edges(k, L, B):
+    """One step, fewer steps than a traceback batch, one block, and a
+    batch past a whole one: the kernels modelled at the lanes per block
+    they ship equal the plain versions."""
+    pairs = _blocked_pairs(k, L, B, 0.6, seed=40 + k + L)
+    decs, final = _model_acs(pairs, k, _shipped_lanes(k))
+    want, want_final = TV.acs_reference(torch.from_numpy(pairs), *CODES[k])
+    np.testing.assert_array_equal(decs, TV.pack_decisions(want).numpy())
+    np.testing.assert_array_equal(final, want_final.numpy())
+    np.testing.assert_array_equal(
+        _model_traceback(decs, final, k),
+        TV.traceback_reference(torch.from_numpy(decs),
+                               torch.from_numpy(final), k).numpy())
+
+
+@pytest.mark.parametrize("k,B,base", [(5, 7, 0), (5, 7, 2), (5, 8, 2),
+                                      (7, 7, 8)])
+def test_kernel_traceback_views(k, B, base):
+    """The traceback reads a K=5 word's half by its address, so decisions
+    that start at 2 mod 4 (``packed[1:]`` of an odd B) walk as they do
+    from an aligned start: the modelled reads equal
+    ``traceback_reference``."""
+    pairs = _blocked_pairs(k, 33, B, 0.6, seed=50 + k + B)
+    decs, final = _model_acs(pairs, k, _shipped_lanes(k))
+    view = decs[1:]
+    np.testing.assert_array_equal(
+        _model_traceback(view, final, k, base=base),
+        TV.traceback_reference(torch.from_numpy(view),
+                               torch.from_numpy(final), k).numpy())
+
+
+def test_kernel_codes_are_linear():
+    """The ACS picks a lane's branch metrics from two values because each
+    code's output bits are linear over GF(2) in (state, a): code(ns | i,
+    a) = code(ns, 0) ^ code(i, a) for disjoint bits, and both generators
+    of each code tap the register's ends, so code(ns, 1) = code(ns, 0) ^ 3
+    (the two branches into a state carry opposite metrics)."""
+    for k in (7, 5):
+        S = 1 << (k - 1)
+        for spl in (1, 2, 4, 8, 16):
+            for hi in range(0, S, spl):
+                for i in range(spl):
+                    for a in (0, 1):
+                        assert (_code(k, hi | i, a)
+                                == _code(k, hi, 0) ^ _code(k, i, a))
+        assert all(_code(k, ns, 1) == _code(k, ns, 0) ^ 3 for ns in range(S))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_viterbi_acs_bound_counts_instructions():
+    """``chip_smoke.viterbi_bounds`` counts the ACS's 6S + 1 fp32
+    operations per step and block (none an FMA) at the rate it is given:
+    at the fp32 instruction rate, 128 per SM and clock, on 132 SMs at
+    1980 MHz, the flagship's shape (K=7, L = 4656, B = 4218) reads
+    ~0.226 ms, twice the 0.113 ms of the 67 TFLOP/s default (the earlier
+    yardstick).  J.83B's K=5 shape and every traceback stay bound by their
+    bytes."""
+    smoke = _chip_smoke()
+    rate = smoke.FP32_LANES_PER_SM * 132 * 1980e6
+    assert rate == pytest.approx(33.45e12, rel=1e-3)
+    L, B, S = 4656, 4218, 64
+    ms, by = smoke.viterbi_bounds(L, B, S, rate)["viterbi_acs"]
+    assert by == "operations"
+    assert ms == pytest.approx(L * B * 385 / rate * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.2261, abs=1e-4)
+    old, old_by = smoke.viterbi_bounds(L, B, S)["viterbi_acs"]
+    assert old_by == "operations"
+    assert old == pytest.approx(L * B * 385 / 67e12 * 1e3, rel=1e-12)
+    assert old == pytest.approx(0.11285, abs=1e-5)
+    tb, tb_by = smoke.viterbi_bounds(L, B, S, rate)["viterbi_traceback"]
+    assert tb_by == "bytes"
+    assert tb == pytest.approx((L * B * 9 + B * S * 4)
+                               / smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    L, B, S = 4346, 1412, 16
+    for name, (ms, by) in smoke.viterbi_bounds(L, B, S, rate).items():
+        assert by == "bytes"
+        assert ms == pytest.approx(smoke.viterbi_bounds(L, B, S)[name][0],
+                                   rel=1e-12)
+    assert smoke.viterbi_bounds(L, B, S, rate)["viterbi_acs"][0] == (
+        pytest.approx((L * B * 10 + B * S * 4) / smoke.HBM_BYTES_PER_S * 1e3,
+                      rel=1e-12))
 
 
 # ---------------------------------------------------------------------------
@@ -379,10 +653,7 @@ def test_ldpc_check_bound_counts_real_edges():
     state read, llr read, totals written, the [Dv, nldpc] table.  The
     message yardstick (one float message per real edge) stays beside
     it."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     cfg = smoke.dvbt2_bbc()
     g, t, batch = TLD._graph(cfg), TLD._tables(cfg), 202
     edges, n_par, dv = g["n_edges"], g["n_parity"], t["var_pairs"].shape[0]

@@ -14,6 +14,9 @@ be equal, and the input TS recovered.  The Viterbi and min-sum kernels
 versions run on the card on the same tensors, bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -123,17 +126,86 @@ def test_viterbi_k5_kernels_equal_plain(monkeypatch):
     _viterbi_kernels_equal_plain(*args)
 
 
+def _code(k):
+    return ((TV.DVBT_K, TV.DVBT_G1, TV.DVBT_G2) if k == 7
+            else (TV.J83B_K, TV.J83B_G1, TV.J83B_G2))
+
+
+def _blocks_per_warp(k):
+    """32 / the lanes per block ``csrc/viterbi.cu`` ships for K: the ACS's
+    blocks per warp."""
+    src = (Path(TV.__file__).resolve().parent.parent / "csrc"
+           / "viterbi.cu").read_text()
+    return 32 // int(re.search(rf"\bACS_LANES_K{k} = (\d+)", src).group(1))
+
+
+def _edge_shapes(k):
+    """(L, B): one step of one block, fewer steps than a traceback batch
+    or a prefetch, one block, and a ragged last warp (B one past and one
+    short of whole warps of blocks)."""
+    g = _blocks_per_warp(k)
+    return [(1, 1), (5, 1), (7, g + 1), (40, 1), (301, 2 * g - 1),
+            (33, 3 * g + 1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [7, 5])
 def test_viterbi_kernels_tied_metrics(k):
     """All erasures tie every candidate and every final metric: no
-    decision set, and the traceback starts at state 0."""
+    decision set, and the traceback starts at state 0; at 301 × 37 and at
+    each edge shape."""
     _need_cuda()
-    g = ((TV.DVBT_K, TV.DVBT_G1, TV.DVBT_G2) if k == 7
-         else (TV.J83B_K, TV.J83B_G1, TV.J83B_G2))
-    packed, bits = _viterbi_kernels_equal_plain(
-        torch.zeros(301, 37, 2, device="cuda"), *g)
-    assert not packed.any() and not bits.any()
+    for L, B in [(301, 37)] + _edge_shapes(k):
+        packed, bits = _viterbi_kernels_equal_plain(
+            torch.zeros(L, B, 2, device="cuda"), *_code(k))
+        assert not packed.any() and not bits.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 5])
+def test_viterbi_kernels_edge_shapes(k):
+    """Noisy pairs with erasures and hard ±1 pairs (exact ties) at each
+    edge shape: the kernels equal the plain versions."""
+    _need_cuda()
+    rng = np.random.default_rng(20 + k)
+    for L, B in _edge_shapes(k):
+        soft = rng.normal(0, 1, (L, B, 2)).astype(np.float32)
+        soft[rng.random((L, B, 2)) < 0.2] = 0.0
+        hard = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32),
+                          (L, B, 2))
+        for pairs in (soft, hard):
+            _viterbi_kernels_equal_plain(torch.from_numpy(pairs).cuda(),
+                                         *_code(k))
+
+
+@pytest.mark.gpu
+def test_viterbi_traceback_views():
+    """The traceback takes any decisions aligned to their word: at K=5
+    ``packed[1:]`` of an odd B (which starts at 2 mod 4) and a copy 2
+    bytes into a buffer equal the plain version; a K=5 view at an odd
+    byte and a K=7 view 4 bytes past 8-byte alignment raise."""
+    _need_cuda()
+    rng = np.random.default_rng(24)
+    for k, B in ((5, 37), (5, 1), (7, 37)):
+        L, nb = 70, 1 << (k - 4)
+        pairs = torch.from_numpy(
+            rng.normal(0, 1, (L, B, 2)).astype(np.float32)).cuda()
+        packed, final = TV._acs(pairs, *_code(k))
+        buf = torch.zeros(L * B * nb + 8, dtype=torch.uint8, device="cuda")
+        views = [packed[1:]]
+        for at in (2, 1, 4):
+            v = buf[at:at + L * B * nb].view(L, B, nb)
+            v.copy_(packed)
+            views.append(v)
+        for v in views:
+            aligned = v.data_ptr() % nb == 0
+            if aligned:
+                assert torch.equal(TV._traceback(v, final, k),
+                                   TV.traceback_reference(v, final, k))
+            else:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    TV._traceback(v, final, k)
+        assert k == 7 or packed[1:].data_ptr() % 4 == 2 * (B % 2)
 
 
 @pytest.mark.gpu
