@@ -64,7 +64,13 @@ the JAX reference:
   ``dtv profile -j papr`` as a subprocess; the rate oracles
   (``dvbtrate``, ``dvbs2rate``, ``atsc3rate``) through the port's CLI and
   the native analyzers built by ``analysis/native.py`` (``l1dump``,
-  ``flags264``, ``xport``) against ``tests/golden``.
+  ``flags264``, ``xport``) against ``tests/golden``;
+* the bench surfaces (step 13): ``bench.bench_j83b`` in this process, one
+  FIR kernel launch per superblock it launched; ``python -m
+  dtv_utils_torch.bench --stress 45``, every one of ``bench.py``'s four
+  metrics finite, above real time (above 1 GSa/s for PAPR) and naming
+  the card, beside steps 8, 9 and 11's medians of the same shapes; and
+  ``python -m dtv_utils_torch.scaling_bench --gpu``'s NCCL row.
 
 The FIR kernel is checked at the main path's size and at edge sizes, on
 rows at every 4-byte alignment and in chained calls, and timed cold (L2
@@ -95,7 +101,9 @@ import dataclasses
 import functools
 import hashlib
 import inspect
+import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -105,6 +113,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dtv_utils_torch.utils.device import card_line
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "j83b_torch_smoke.json"
@@ -172,6 +182,8 @@ PROFILE_FIR_FLOOR = 0.9                 # rrc_interpolate row / step 3's warm
 PROFILE_FULL_FLOOR = 0.95               # FULL row / steps 8-9's busy ms
 PROFILE_QUEUED = 3                      # calls queued for a row's device ms
 PROFILE_FIR_ROWS = ("rrc_interpolate", "FULL superblock")
+BENCH_J83B_S = 10.0                     # in-process bench_j83b's deadline
+BENCH_STRESS_S = 45.0                   # bench --stress budget per metric
 RATE_CASES = (
     [(["dvbtrate", str(bw)], f"dvbtrate_{bw}.txt") for bw in (5, 6, 7, 8)]
     + [(["dvbs2rate", *([] if o == "n" else ["-" + o]), r],
@@ -211,14 +223,6 @@ def sha256(*arrays: np.ndarray) -> str:
 def state_digest(d: dict, keys=J83B_STATE_KEYS) -> str:
     """sha256 of a chain state's integer fields, from host arrays."""
     return sha256(*(np.asarray(d[k]) for k in keys))
-
-
-def card_line(dev) -> str:
-    """``name, power limit`` of the card, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[dev.index]
 
 
 def dvbt_flagship():
@@ -2266,7 +2270,7 @@ def _batch_inputs(dev, b: Batched, count: int) -> list[torch.Tensor]:
     return list(ts)
 
 
-def serve_batched(dev, card: str, b: Batched, one: Batched) -> None:
+def serve_batched(dev, card: str, b: Batched, one: Batched) -> list[float]:
     """Batched serving of one stream, L blocks per call, on the step-8
     protocol (a distinct device-resident input per call, warm-up excluded,
     CUDA events, 3 repeats of BATCH_ROUNDS calls); device activities and
@@ -2275,7 +2279,7 @@ def serve_batched(dev, card: str, b: Batched, one: Batched) -> None:
     BATCH_MAX_GROWTH times the L = 1 call's activities or more); peak
     memory of one call.  Every profiled and measured call continues its
     stream, as every timed call does.  Prints one line, ending with the
-    card."""
+    card; returns the repeats' Msamples/s."""
     from dtv_utils_torch.utils.timing import timed_stream
 
     msps, call_ms = [], []
@@ -2307,6 +2311,7 @@ def serve_batched(dev, card: str, b: Batched, one: Batched) -> None:
     if acts >= BATCH_MAX_GROWTH * acts1:
         raise AssertionError(f"{b.label}: {acts} device activities per call "
                              f"against {acts1} at L=1")
+    return msps
 
 
 def check_sharded(dev, firsts: dict[str, tuple]) -> None:
@@ -2526,6 +2531,81 @@ def check_rates_native() -> None:
           "goldens")
 
 
+def check_bench(card: str, steps: dict[str, float]) -> int:
+    """Step 13: the port's bench surfaces on the card.  ``bench_j83b`` in
+    this process with a short deadline: its line, and one FIR kernel
+    launch per superblock it launched (the FIR's count set to 0 first).
+    Then ``python -m dtv_utils_torch.bench --stress`` as a child: exit 0,
+    each of the four metrics' last line finite, value > 0, vs_baseline > 1,
+    naming this card, printed beside ``steps``' median of the same shape;
+    and ``python -m dtv_utils_torch.scaling_bench --gpu``'s row.  Returns
+    the FIR's launches in ``bench_j83b``."""
+    from dtv_utils_torch import bench
+    from dtv_utils_torch.ops import fir
+    from dtv_utils_torch.utils.metrics import Metrics
+
+    t0 = time.perf_counter()
+    sink = io.StringIO()
+    fir.LAUNCHES = 0
+    bench.bench_j83b(Metrics(json_out=sink, suppress_human=True),
+                     time.perf_counter() + BENCH_J83B_S)
+    launches = fir.LAUNCHES
+    if not sink.getvalue():
+        raise AssertionError("bench_j83b emitted no line")
+    last = json.loads(sink.getvalue().splitlines()[-1])
+    superblocks = bench.N_STREAMS * (1 + 2 * last["segments_completed"])
+    if launches != superblocks:
+        raise AssertionError(f"bench_j83b launched {superblocks} "
+                             f"superblocks and the FIR kernel {launches} "
+                             "times")
+    print(f"bench_j83b in process: {last['value']:.3f} {last['unit']} over "
+          f"{last['segments_completed']} segments, {launches} FIR launches "
+          f"for {superblocks} superblocks, on {last['device']}")
+
+    run = subprocess.run(
+        [sys.executable, "-m", "dtv_utils_torch.bench", "--stress",
+         str(BENCH_STRESS_S)], capture_output=True, text=True, cwd=ROOT,
+        timeout=len(bench.ORDER) * BENCH_STRESS_S + 60)
+    lines = {}
+    for ln in run.stdout.splitlines():
+        if ln.startswith("{"):
+            rec = json.loads(ln)
+            lines[rec["metric"]] = rec
+    if run.returncode or set(lines) != set(bench.METRIC_OF.values()):
+        raise AssertionError(f"bench --stress {BENCH_STRESS_S}: exit "
+                             f"{run.returncode}, lines for {sorted(lines)}"
+                             f"\n{run.stderr[-3000:]}")
+    for name in bench.ORDER:
+        rec = lines[bench.METRIC_OF[name]]
+        if not (math.isfinite(rec["value"]) and rec["value"] > 0
+                and rec["vs_baseline"] > 1 and rec["device"] == card):
+            raise AssertionError(f"bench {name}: {rec}")
+        print(f"bench --stress {BENCH_STRESS_S:g} {rec['metric']}: "
+              f"{rec['value']:.3f} {rec['unit']} (vs_baseline "
+              f"{rec['vs_baseline']:.3f}, {rec['segments_completed']} "
+              f"segments, runs {', '.join(f'{v:.3f}' for v in rec['runs'])},"
+              f" blocks per launch {rec.get('blocks_per_dispatch', '-')}, "
+              f"tf32={rec['tf32']}) beside the step's median "
+              f"{steps[name]:.3f}, on {rec['device']}")
+        print(f"bench line: {json.dumps(rec)}")
+
+    run = subprocess.run(
+        [sys.executable, "-m", "dtv_utils_torch.scaling_bench", "--gpu"],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    rows = [json.loads(ln) for ln in run.stdout.splitlines()
+            if ln.startswith("{")]
+    if run.returncode or not any(r["world"] == 1 for r in rows):
+        raise AssertionError(f"scaling_bench --gpu: exit {run.returncode}, "
+                             f"rows {rows}\n{run.stderr[-3000:]}")
+    for r in rows:
+        print(f"scaling_bench --gpu: {json.dumps(r)}")
+    for ln in run.stderr.splitlines():
+        if "no row" in ln:
+            print(ln)
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _tf32() -> str:
     return f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
 
@@ -2661,6 +2741,7 @@ def main() -> int:
     print(f"host probe: {host_probe_us(dev):.3f} µs per tiny launch, on "
           f"{card}")
     msps, sb_ms = serve(dev)
+    step_medians = {"j83b": sorted(msps)[1]}
     print(f"j83b serving, {_tf32()}: {_repeats(msps)} Msamples/s "
           f"({N_STREAMS} streams, {TIMED_ROUNDS} timed rounds each) on {card}")
     print(f"j83b one stream, {_tf32()}: {_repeats(sb_ms)} ms/superblock on "
@@ -2681,6 +2762,7 @@ def main() -> int:
         busy_ms, _ = profile_dvbt(dev)
         if not tf32:
             serve_busy["dvbt"] = busy_ms
+            step_medians["dvbt"] = sorted(msps)[1]
         sf4_ms = (dvbt_flagship().samples_per_superframe
                   / (sorted(msps)[1] * 1e3))
         print(f"dvbt device busy share, {_tf32()}: "
@@ -2710,7 +2792,8 @@ def main() -> int:
           f"4-stream serving's {fr4_ms:.4f} ms/frame, on {card}")
     dvbt_1, dvbt_4, dvbt_8, t2_4, j83b_4 = (
         batched_dvbt(dev, 1), *batched_chains(dev))
-    serve_batched(dev, card, t2_4, batched_dvbt2(dev, 1))   # 4 per launch
+    step_medians["dvbt2"] = sorted(serve_batched(   # 4 frames per launch
+        dev, card, t2_4, batched_dvbt2(dev, 1)))[1]
 
     # 10. batched and sharded streaming at full width: batched equal to the
     # serial chain (DVB-T L = 4 and 8, DVB-T2 BBC and J.83B L = 4, each
@@ -2732,6 +2815,7 @@ def main() -> int:
 
     # 11. PAPR scan throughput
     gsps = time_papr(dev)
+    step_medians["papr"] = sorted(gsps)[1]
     print(f"papr pass 1 + pass 2 ({PAPR_LEVELS} levels, {PAPR_CHUNK} complex "
           f"per chunk), {_tf32()}: {_repeats(gsps, '.4f')} GSa/s on {card}")
 
@@ -2747,12 +2831,19 @@ def main() -> int:
     print(f"profiler, rates and native phase: "
           f"{time.perf_counter() - t_prof:.1f} s")
 
+    # 13. the bench surfaces: bench_j83b in this process with its FIR
+    # launches counted, `python -m dtv_utils_torch.bench --stress` beside
+    # steps 8, 9 and 11's medians of the same shapes, and
+    # `python -m dtv_utils_torch.scaling_bench --gpu`
+    bench_fir_launches = check_bench(card, step_medians)
+
     kernels = [{
         "name": "fir_interp2", "route": "cuda",
         "source": "dtv_utils_torch/csrc/fir_interp2.cu",
         "replaces": "dtv_utils_tpu/ops/fir.py:66",
         "launches": launches,
         "launches_per_batched_j83b_call": j83b_batched_launches,
+        "launches_in_bench_j83b": bench_fir_launches,
         "batched_j83b_superblocks": j83b_x.shape[0], "max_abs_err": max_err,
         "ms": t["kernel_cold"], "cold_ms": t["kernel_cold"],
         "warm_ms": t["kernel_warm"], "plain_ms": t["plain_cold"],

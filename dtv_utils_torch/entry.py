@@ -17,12 +17,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import os
-import subprocess
-import sys
-import tempfile
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -118,6 +112,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     each a new Python process: with ``device="cuda"`` rank r uses card r
     (more ranks than cards raise), with ``"cpu"`` every rank is a gloo CPU
     process.  Raises if any rank fails; stops every rank it started."""
+    from dtv_utils_torch.parallel import multihost
     from dtv_utils_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -126,29 +121,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     if dev.type == "cuda" and n_devices > torch.cuda.device_count():
         raise ValueError(f"{n_devices} ranks but "
                          f"{torch.cuda.device_count()} CUDA devices")
-    root = str(Path(__file__).resolve().parents[1])
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    with tempfile.TemporaryDirectory() as d:
-        init = Path(d, "rendezvous").resolve().as_uri()
-        procs = [subprocess.Popen([sys.executable, "-c", _RANK_CODE, str(r),
-                                   str(n_devices), init, dev.type], env=env)
-                 for r in range(n_devices)]
-        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
-        try:       # until every rank ends, one fails, or the time is up
-            while (any(p.poll() is None for p in procs)
-                   and not any(p.poll() for p in procs)
-                   and time.monotonic() < deadline):
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    codes = [p.returncode for p in procs]
-    if any(codes):
-        raise RuntimeError(f"dryrun_multichip({n_devices}): rank exit codes "
-                           f"{codes}")
+    try:
+        multihost.run_ranks(_RANK_CODE, n_devices, [dev.type],
+                            timeout=DRYRUN_TIMEOUT_S)
+    except RuntimeError as e:
+        raise RuntimeError(f"dryrun_multichip({n_devices}): {e}") from None
 
 
 if __name__ == "__main__":

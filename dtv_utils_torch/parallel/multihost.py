@@ -14,10 +14,18 @@ global array in torch, so where the reference assembles one
 Nothing here reads the environment: ``initialize`` takes the rendezvous
 address (``tcp://host:port`` or ``file:///path``), the world size and the
 rank from its caller.  CUDA ranks use NCCL, one device each; CPU ranks use
-gloo.
+gloo.  ``run_ranks`` starts a world of rank processes on this host.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -73,3 +81,41 @@ def local_output(out: torch.Tensor, group=None) -> tuple[int, np.ndarray]:
     IQ onward without gathering the stream."""
     _require_group()
     return dist.get_rank(group) * out.shape[0], out.cpu().numpy()
+
+
+def run_ranks(code: str, n: int, args: Sequence[str], *,
+              timeout: float) -> list[str]:
+    """Run ``python -c code RANK N INIT_METHOD *args`` for ranks 0..n-1 on
+    this host, the repository root on their ``PYTHONPATH``, meeting at a
+    ``file://`` rendezvous (INIT_METHOD) in a temporary directory; returns
+    each rank's stdout.  Waits until every rank ends, one fails or
+    ``timeout`` seconds pass; stops every rank it started, and raises if
+    any rank did not exit 0."""
+    root = str(Path(__file__).resolve().parents[2])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    with tempfile.TemporaryDirectory() as d:
+        init = Path(d, "rendezvous").resolve().as_uri()
+        outs = [Path(d, f"rank{r}.out") for r in range(n)]
+        procs = []
+        for r in range(n):
+            with open(outs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(r), str(n), init,
+                     *args], env=env, stdout=f))
+        deadline = time.monotonic() + timeout
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = [o.read_text() for o in outs]
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{n} ranks: exit codes {codes}")
+    return texts

@@ -8,6 +8,8 @@ none is an error: nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -31,6 +33,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
             f"unsupported device {str(device)!r}: use 'cpu' or 'cuda[:N]'")
     return dev
 
+
+def card_line(dev: torch.device) -> str:
+    """``name, power limit`` of CUDA device ``dev``, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` reports them: a
+    card may be set below its maximum power, and then runs slower."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[dev.index]
 
 
 def split_device_arg(argv: list[str]) -> tuple[list[str], str]:

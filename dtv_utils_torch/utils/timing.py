@@ -9,27 +9,53 @@ timed region unless the timed function does it.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import torch
 
 
+def elapsed_s(run: Callable[[], object], device: torch.device) -> float:
+    """Seconds from the call of ``run()`` until ``device`` has finished
+    what it launched.  On a CUDA device: two events recorded on the
+    current stream around it, read after a synchronize (a synchronize
+    first, so no earlier work enters the window); the host's gaps between
+    launches count, as they do for a caller who waits for the result.  On
+    the CPU, whose ops finish before they return: the host clock."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / 1e3
+    if device.type == "cpu":
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+    raise ValueError(f"cannot time on {device}")
+
+
+def _current_cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def time_cuda(fn: Callable[[], object], iters: int, warmup: int = 1) -> float:
     """Mean device milliseconds per call of ``fn()`` over ``iters`` calls,
     after ``warmup`` untimed calls."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("time_cuda needs a CUDA device")
+    dev = _current_cuda()
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+
+    def timed():
+        for _ in range(iters):
+            fn()
+    return elapsed_s(timed, dev) * 1e3 / iters
 
 
 def timed_stream(fn: Callable, inputs: Sequence, states: list,
@@ -42,8 +68,7 @@ def timed_stream(fn: Callable, inputs: Sequence, states: list,
     multiplexed on one device.  ``len(inputs)`` must be a multiple of
     ``len(states)`` and leave at least one timed round.
     """
-    if not torch.cuda.is_available():
-        raise RuntimeError("timed_stream needs a CUDA device")
+    dev = _current_cuda()
     n_streams = len(states)
     if len(inputs) % n_streams or len(inputs) // n_streams <= warmup:
         raise ValueError("inputs must fill whole rounds, with at least one "
@@ -52,13 +77,9 @@ def timed_stream(fn: Callable, inputs: Sequence, states: list,
     for _ in range(warmup):
         for s in range(n_streams):
             _, states[s] = fn(next(it), states[s])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i, x in enumerate(it):
-        s = i % n_streams
-        _, states[s] = fn(x, states[s])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 1e3
+
+    def timed():
+        for i, x in enumerate(it):
+            s = i % n_streams
+            _, states[s] = fn(x, states[s])
+    return elapsed_s(timed, dev)
