@@ -65,8 +65,17 @@ the JAX reference:
   (``dvbtrate``, ``dvbs2rate``, ``atsc3rate``) through the port's CLI and
   the native analyzers built by ``analysis/native.py`` (``l1dump``,
   ``flags264``, ``xport``) against ``tests/golden``;
-* the bench surfaces (step 13): ``bench.bench_j83b`` in this process, one
-  FIR kernel launch per superblock it launched; ``python -m
+* the captured calls (step 12b, ``utils/graph``): each modulator's
+  ``jit_modulator`` (DVB-T flagship, DVB-T2 BBC) and BBC's 4-frame batched
+  runner and J.83B's, 8 calls x 4 streams round-robin, equal to the eager
+  chain bit for bit (IQ and state) with no host sync, the first call's
+  result unchanged after the last, the bounded table caches cleared
+  between capture and replay, the FIR launched once per J.83B replay;
+  host µs per call, Msamples/s in alternating eager/graph pairs, device
+  ms per block, busy share, capture seconds and the graphs' pool; and
+  ``jit_decode`` on BBC's 2 frames equal to ``decode``;
+* the bench surfaces (step 13, through the graphs): ``bench.bench_j83b``
+  in this process, one FIR kernel launch per superblock it launched; ``python -m
   dtv_utils_torch.bench --stress 45``, every one of ``bench.py``'s four
   metrics finite, above real time (above 1 GSa/s for PAPR) and naming
   the card, beside steps 8, 9 and 11's medians of the same shapes; and
@@ -114,6 +123,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dtv_utils_torch.ops import _build
 from dtv_utils_torch.utils.device import card_line
 
 ROOT = Path(__file__).resolve().parent
@@ -182,6 +192,13 @@ PROFILE_FIR_FLOOR = 0.9                 # rrc_interpolate row / step 3's warm
 PROFILE_FULL_FLOOR = 0.95               # FULL row / steps 8-9's busy ms
 PROFILE_QUEUED = 3                      # calls queued for a row's device ms
 PROFILE_FIR_ROWS = ("rrc_interpolate", "FULL superblock")
+GRAPH_CALLS = 8                         # graphs step: calls per stream
+GRAPH_SEED = 0x6A4
+GRAPH_QUEUED = 6                        # calls queued for device ms (116
+#                                         J.83B launches each: the queue
+#                                         holds ~1000)
+GRAPH_JUNK = 4                          # tensors per size after eviction
+GRAPH_KERNELS = ("fir_interp2", "ldpc_check", "ldpc_variable")  # in graphs
 BENCH_J83B_S = 10.0                     # in-process bench_j83b's deadline
 BENCH_STRESS_S = 45.0                   # bench --stress budget per metric
 RATE_CASES = (
@@ -439,7 +456,6 @@ def check_slice(dev, golden: dict) -> tuple[int, np.ndarray]:
     """modulate_stream over the golden's superblocks, checked against the
     golden; returns the FIR kernel launches it made and its IQ."""
     from dtv_utils_torch.core.config import J83bConfig
-    from dtv_utils_torch.ops import fir
     from dtv_utils_torch.tx import j83b as txq
 
     cfg = J83bConfig()
@@ -448,9 +464,9 @@ def check_slice(dev, golden: dict) -> tuple[int, np.ndarray]:
     if sha256(ts) != golden["ts_sha256"]:
         raise AssertionError("seeded_ts no longer makes the golden's input")
 
-    fir.LAUNCHES = 0
+    _build.LAUNCHES["fir_interp2"] = 0
     iq, state = txq.modulate_stream(cfg, ts, device=dev)
-    launches = fir.LAUNCHES
+    launches = _build.LAUNCHES["fir_interp2"]
     print(f"modulate_stream: {n_sb} superblocks, {launches} FIR launches")
 
     want_len = n_sb * 2 * txq.SUPERBLOCK_SYMBOLS
@@ -1028,14 +1044,14 @@ def _counted(module, name: str):
 
 
 @contextlib.contextmanager
-def _main_path(store: dict, label: str, counts: dict):
-    """Set the kernel launch ``counts`` to 0, run the block (a main-path
-    run), store the counts it made under ``label``; fail if a kernel of
-    the path was not launched."""
-    for key in counts:
-        counts[key] = 0
+def _main_path(store: dict, label: str, kernels: tuple[str, ...]):
+    """Set the launch counts of ``kernels`` to 0, run the block (a
+    main-path run), store the counts it made under ``label``; fail if a
+    kernel of the path was not launched."""
+    for key in kernels:
+        _build.LAUNCHES[key] = 0
     yield
-    store[label] = dict(counts)
+    store[label] = {key: _build.LAUNCHES[key] for key in kernels}
     if not all(store[label].values()):
         raise AssertionError(f"{label}: a kernel of the path was not "
                              f"launched: {store[label]}")
@@ -1179,12 +1195,14 @@ def check_dvbt_rx_capped(dev, card: str, dvbt_golden: dict) -> None:
     from dtv_utils_torch.rx import dvbt as rxd
     from dtv_utils_torch.tx import dvbt as txd
     from dtv_utils_torch.utils import device as udev
+    from dtv_utils_torch.utils import graph
 
     cfg = dvbt_flagship()
     spf = cfg.samples_per_superframe
     lo, hi = RX_CAP_SUPERFRAMES
     ts = seeded_ts(dvbt_golden["seed"], hi * cfg.ts_bytes_per_superframe)
     iq, _ = txd.modulate_stream(cfg, ts, device=dev)
+    graph.release(dev)      # the modulator's graph pool stays out of it
     x = torch.from_numpy(iq).to(dev)
     del iq
     t0 = time.perf_counter()
@@ -2120,36 +2138,44 @@ per block."""
 
 
 def batched_dvbt(dev, L: int) -> Batched:
-    """The DVB-T flagship through ``batched_dvbt_modulator``: a stream's
-    position is (the previous superframe's 12-packet tail, its index)."""
+    """The DVB-T flagship through the eager batched call
+    (``modulate_dvbt_blocks``, what ``batched_dvbt_modulator`` captures): a
+    stream's position is (the previous superframe's 12-packet tail, its
+    index, a 0-d int32 tensor)."""
     from dtv_utils_torch.parallel import stream as ps
     from dtv_utils_torch.tx import dvbt as txd
 
     cfg = dvbt_flagship()
-    fn = ps.batched_dvbt_modulator(cfg, device=dev)
     halo = ps.HALO_PACKETS * 188
 
     def call(x, pos):
-        return fn(x, *pos), (x[-1, -halo:], pos[1] + x.shape[0])
+        return (ps.modulate_dvbt_blocks(cfg, x, *pos),
+                (x[-1, -halo:], pos[1] + x.shape[0]))
     return Batched(f"dvbt flagship L={L}", L, cfg.ts_bytes_per_superframe,
-                   cfg.samples_per_superframe, call, (None, 0),
+                   cfg.samples_per_superframe, call,
+                   (torch.zeros(halo, dtype=torch.uint8, device=dev),
+                    ps.block_index(0, dev)),
                    lambda b, st: txd.modulate_superframe(cfg, b, st),
                    lambda: txd.init_state(cfg, device=dev))
 
 
 def batched_dvbt2(dev, L: int) -> Batched:
-    """DVB-T2 BBC through the port's batched modulator (bench.py's shape at
-    L = 4): a stream's position is (the last 187 raw bytes, frame index)."""
+    """DVB-T2 BBC through the port's eager batched call
+    (``modulate_dvbt2_blocks``, bench.py's shape at L = 4): a stream's
+    position is (the last 187 raw bytes, frame index, a 0-d int32
+    tensor)."""
     from dtv_utils_torch.parallel import stream as ps
     from dtv_utils_torch.tx import dvbt2 as t2
 
     cfg = dvbt2_bbc()
-    fn = ps._batched_dvbt2_modulator(cfg, device=dev)
 
     def call(x, pos):
-        return fn(x, *pos), (x[-1, -ps.T2_HALO_BYTES:], pos[1] + x.shape[0])
+        return (ps.modulate_dvbt2_blocks(cfg, x, *pos),
+                (x[-1, -ps.T2_HALO_BYTES:], pos[1] + x.shape[0]))
     return Batched(f"dvbt2 bbc L={L}", L, cfg.payload_bytes_per_frame,
-                   t2.samples_per_frame(cfg), call, (None, 0),
+                   t2.samples_per_frame(cfg), call,
+                   (torch.zeros(ps.T2_HALO_BYTES, dtype=torch.uint8,
+                                device=dev), ps.block_index(0, dev)),
                    lambda b, st: t2.modulate_frame(cfg, b, st),
                    lambda: t2.init_state(cfg, device=dev))
 
@@ -2191,7 +2217,6 @@ def check_batched(dev, b: Batched) -> tuple[torch.Tensor, torch.Tensor]:
     same blocks, bit for bit; both calls run again, warm, under
     ``set_sync_debug_mode("error")``.  A J.83B call must launch the FIR
     kernel exactly once.  Returns the first call's input and output."""
-    from dtv_utils_torch.ops import fir
 
     ts = torch.from_numpy(seeded_ts(BATCH_SEED, 2 * b.L * b.block_bytes)
                           ).to(dev).reshape(2 * b.L, b.block_bytes)
@@ -2207,9 +2232,9 @@ def check_batched(dev, b: Batched) -> tuple[torch.Tensor, torch.Tensor]:
         try:
             pos, got = b.pos0, []
             for x in (ts[:b.L], ts[b.L:]):
-                launches = fir.LAUNCHES
+                launches = _build.LAUNCHES["fir_interp2"]
                 iq, pos = b.call(x, pos)
-                launches = fir.LAUNCHES - launches
+                launches = _build.LAUNCHES["fir_interp2"] - launches
                 if not iq.is_complex() and launches != 1:
                     raise AssertionError(f"{b.label}: {launches} FIR launches "
                                          "in one call")
@@ -2384,16 +2409,15 @@ def profile_stages(dev, card: str, fir_t: dict, serve_busy: dict) -> None:
     ``rrc_interpolate`` row may be no faster than PROFILE_FIR_FLOOR of step
     3's warm kernel, and each FULL row no faster than PROFILE_FULL_FLOOR
     of the device-busy ms per block that steps 8-9 measured."""
-    from dtv_utils_torch.ops import fir
     from dtv_utils_torch.utils import profile
 
     real = profile.profile_fn
     seen: list[tuple] = []
 
     def checked(name, fn, args, n_variants=6):
-        before = fir.LAUNCHES
+        before = _build.LAUNCHES["fir_interp2"]
         rep = real(name, fn, args, n_variants)
-        launches = fir.LAUNCHES - before
+        launches = _build.LAUNCHES["fir_interp2"] - before
         seen.append((rep, launches, n_variants, _queued_ms(
             [functools.partial(fn, *args)] * PROFILE_QUEUED)))
         return rep
@@ -2404,7 +2428,7 @@ def profile_stages(dev, card: str, fir_t: dict, serve_busy: dict) -> None:
         for chain in PROFILE_CHAINS:
             seen.clear()
             if chain == "j83b":
-                fir.LAUNCHES = 0
+                _build.LAUNCHES["fir_interp2"] = 0
             t0 = time.perf_counter()
             if chain == "dvbt":
                 reps = profile.dvbt_stages(dvbt_flagship(), device=dev)
@@ -2445,8 +2469,8 @@ def profile_stages(dev, card: str, fir_t: dict, serve_busy: dict) -> None:
                       f"{bound_ms / rrc.ms:.3f} of the {bound_ms:.5f} ms "
                       f"bound (step 3's kernel cold: "
                       f"{bound_ms / fir_t['kernel_cold']:.3f}, warm "
-                      f"{fir_t['kernel_warm']:.5f} ms), {fir.LAUNCHES} FIR "
-                      f"launches in the chain")
+                      f"{fir_t['kernel_warm']:.5f} ms), {_build.LAUNCHES['fir_interp2']} "
+                      f"FIR launches in the chain")
             if chain in serve_busy:
                 full = next(r for r in reps if r.name.startswith("FULL"))
                 ratio = full.ms / serve_busy[chain]
@@ -2531,6 +2555,302 @@ def check_rates_native() -> None:
           "goldens")
 
 
+Chain = collections.namedtuple(
+    "Chain", "label blocks block_bytes samples graph eager state0 static")
+Chain.__doc__ = """One captured chain of the graphs step: ``graph(x, st)``
+and ``eager(x, st)`` → (IQ, next st) on the same inputs, ``x`` uint8
+[blocks * block_bytes] (or [blocks, block_bytes]); ``state0()`` a stream's
+start; ``static(x, st)`` the ``StaticCall`` the graph runs; ``samples``
+per block."""
+
+
+def graph_chains(dev) -> list[Chain]:
+    """The graphs step's chains at full width: DVB-T flagship, DVB-T2 BBC
+    at one frame per call (``jit_modulator``), the blade profile with tone
+    reservation (``--papr``: the ``_tr_step`` loop inside the graph),
+    J.83B, and BBC at bench.py's 4 frames through the captured batched
+    runner (a stream's state is the last 187 raw bytes and the frame
+    index, a 0-d int32 tensor)."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.parallel import stream as ps
+    from dtv_utils_torch.tx import dvbt as txd
+    from dtv_utils_torch.tx import dvbt2 as t2
+    from dtv_utils_torch.tx import j83b as txq
+
+    out = []
+    for label, mod, cfg, eager, blk, spb in (
+            ("dvbt flagship", txd, dvbt_flagship(), txd.modulate_superframe,
+             dvbt_flagship().ts_bytes_per_superframe,
+             dvbt_flagship().samples_per_superframe),
+            ("dvbt2 bbc", t2, dvbt2_bbc(), t2.modulate_frame,
+             dvbt2_bbc().payload_bytes_per_frame,
+             t2.samples_per_frame(dvbt2_bbc())),
+            ("dvbt2 blade papr", t2, dvbt2_papr(), t2.modulate_frame,
+             dvbt2_papr().payload_bytes_per_frame,
+             t2.samples_per_frame(dvbt2_papr())),
+            ("j83b", txq, J83bConfig(), txq.modulate_superblock,
+             txq.SUPERBLOCK_BYTES, 2 * txq.SUPERBLOCK_SYMBOLS)):
+        fn = mod.jit_modulator(cfg, device=dev)
+        out.append(Chain(label, 1, blk, spb, fn, functools.partial(
+            eager, cfg), functools.partial(mod.init_state, cfg, device=dev),
+            fn.static_call))
+    cfg = dvbt2_bbc()
+    run = ps._batched_dvbt2_modulator(cfg, device=dev)
+    jit = ps._jit_blocks(ps.modulate_dvbt2_blocks, cfg, dev)
+
+    def advance(x, pos):
+        return x[-1, -ps.T2_HALO_BYTES:], pos[1] + x.shape[0]
+
+    def state0():
+        return (torch.zeros(ps.T2_HALO_BYTES, dtype=torch.uint8, device=dev),
+                ps.block_index(0, dev))
+    out.append(Chain(
+        f"dvbt2 bbc L={BATCH_L} batched", BATCH_L,
+        cfg.payload_bytes_per_frame, t2.samples_per_frame(cfg),
+        lambda x, pos: (run(x, *pos), advance(x, pos)),
+        lambda x, pos: (ps.modulate_dvbt2_blocks(cfg, x, *pos),
+                        advance(x, pos)),
+        state0, lambda x, pos: jit.static_call(x, *pos)))
+    return out
+
+
+def _leaves(x) -> list[torch.Tensor]:
+    """The tensors of a state (a dataclass or a tuple)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    return [t for v in x for t in _leaves(v)]
+
+
+def _graph_inputs(dev, c: Chain, count: int) -> list[torch.Tensor]:
+    g = torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+    ts = torch.randint(0, 256, (count, c.blocks, c.block_bytes),
+                       generator=g, device=dev, dtype=torch.uint8)
+    ts[:, :, ::188] = 0x47
+    return list(ts if c.blocks > 1 else ts.reshape(count, -1))
+
+
+def _timed_calls(fn, inputs: list, states: list) -> tuple[float, float]:
+    """Host µs per call to enqueue ``out, states[s] = fn(x, states[s])``
+    round-robin over ``inputs`` (one untimed round first), and the device
+    window's ms per call between CUDA events around them."""
+    n = len(states)
+    for s, x in enumerate(inputs[:n]):
+        _, states[s] = fn(x, states[s])
+    timed = inputs[n:]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    t0 = time.perf_counter()
+    for i, x in enumerate(timed):
+        _, states[i % n] = fn(x, states[i % n])
+    host_s = time.perf_counter() - t0
+    ev[1].record()
+    torch.cuda.synchronize()
+    return host_s / len(timed) * 1e6, ev[0].elapsed_time(ev[1]) / len(timed)
+
+
+class GraphLaunches:
+    """The kernel launches of the graph calls alone: ``wrap(fn)`` is
+    ``fn`` with the change of every launch count around each of its calls
+    added to ``counts``; the eager calls made beside them add nothing."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(_build.LAUNCHES, 0)
+
+    def wrap(self, fn):
+        def counted(*args):
+            before = dict(_build.LAUNCHES)
+            out = fn(*args)
+            for k, n in _build.LAUNCHES.items():
+                self.counts[k] += n - before[k]
+            return out
+        return counted
+
+
+def check_graph_chain(dev, card: str, c: Chain, tally: GraphLaunches
+                      ) -> dict:
+    """One chain of the graphs step: GRAPH_CALLS calls × N_STREAMS streams
+    round-robin through the graph (the first captures, under
+    ``set_sync_debug_mode("error")`` like every graph call here) and the
+    eager chain on the same inputs, IQ and state equal bit for bit after
+    every call; the bounded table caches cleared after the first round
+    (the graph keeps reading what it was captured on); the first call's
+    result unchanged after the last; J.83B's FIR launched once per call;
+    then host µs per call and Msamples/s, eager and graph in alternating
+    pairs, device ms per block queued behind a spin, capture seconds and
+    the shared pool's MiB.  Every graph call goes through ``tally``.
+    Returns the figures."""
+    from dtv_utils_torch.tx import dvbt as txd
+    from dtv_utils_torch.tx import dvbt2 as t2
+    from dtv_utils_torch.utils import graph
+
+    inputs = _graph_inputs(dev, c, GRAPH_CALLS * N_STREAMS)
+    graph_fn = tally.wrap(c.graph)
+    gs = [c.state0() for _ in range(N_STREAMS)]
+    es = [c.state0() for _ in range(N_STREAMS)]
+    first, junk = None, []
+    pool0 = graph.pool_bytes(dev)
+    for i, x in enumerate(inputs):
+        s = i % N_STREAMS
+        if i == N_STREAMS:      # after the capture: evict, reuse memory
+            txd.dispersal_rows.cache_clear()
+            t2._stream_plan.cache_clear()
+            junk = [torch.full((1 << k,), 0xA5, dtype=torch.uint8,
+                               device=dev)
+                    for k in range(9, 27) for _ in range(GRAPH_JUNK)]
+        elif i == 2 * N_STREAMS:
+            junk.clear()
+        launches = _build.LAUNCHES["fir_interp2"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            iq, gs[s] = graph_fn(x, gs[s])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        fir_launches = _build.LAUNCHES["fir_interp2"] - launches
+        want, es[s] = c.eager(x, es[s])
+        if not (torch.equal(iq, want) and all(
+                torch.equal(a, b) for a, b in zip(_leaves(gs[s]),
+                                                  _leaves(es[s])))):
+            raise AssertionError(f"{c.label}: call {i} (stream {s}) of the "
+                                 "graph differs from the eager chain")
+        if c.label == "j83b" and fir_launches != 1:
+            raise AssertionError(f"{c.label}: call {i} launched the FIR "
+                                 f"{fir_launches} times")
+        if first is None:
+            first = (iq, gs[s], iq.clone(), [t.clone() for t in
+                                            _leaves(gs[s])])
+    if not (torch.equal(first[0], first[2]) and all(
+            torch.equal(a, b) for a, b in zip(_leaves(first[1]), first[3]))):
+        raise AssertionError(f"{c.label}: a later call changed the first "
+                             "call's result")
+    sc = c.static(inputs[0], c.state0())
+    digest = sha256(*(t.cpu().numpy() for s in gs for t in _leaves(s)))
+    if digest != sha256(*(t.cpu().numpy() for s in es for t in _leaves(s))):
+        raise AssertionError(f"{c.label}: state digests differ")
+    pool = graph.pool_bytes(dev)
+    runs: dict[str, list] = {"eager": [], "graph": []}
+    for side in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        fn = c.eager if side == "eager" else graph_fn
+        runs[side].append(_timed_calls(
+            fn, inputs, [c.state0() for _ in range(N_STREAMS)]))
+    dev_ms = {}
+    for side, fn in (("eager", c.eager), ("graph", graph_fn)):
+        st = c.state0()
+        dev_ms[side] = _queued_ms([functools.partial(fn, x, st)
+                                   for x in inputs[:GRAPH_QUEUED]]) / c.blocks
+    res = {"label": c.label, "capture_s": sc.capture_s,
+           "pool_mib": pool / 2**20, "pool_added_mib": (pool - pool0) / 2**20,
+           "launches_per_replay": sc.launches,
+           "state_sha256": digest}
+    for side in ("eager", "graph"):
+        host = [h for h, _ in runs[side]]
+        window = [w for _, w in runs[side]]
+        res[side] = {
+            "host_us_per_call": host,
+            "msps": [c.blocks * c.samples / w / 1e3 for w in window],
+            "device_ms_per_block": dev_ms[side],
+            "busy_share": [dev_ms[side] * c.blocks / w for w in window]}
+    print(f"graphs {c.label}: {GRAPH_CALLS} calls x {N_STREAMS} streams "
+          f"equal to the eager chain bit for bit (IQ and state, state "
+          f"sha256 {digest[:16]}), the first call's result unchanged, "
+          f"captured in {sc.capture_s:.3f} s, launches per replay "
+          f"{res['launches_per_replay']}, pool {res['pool_mib']:.1f} MiB "
+          f"(+{res['pool_added_mib']:.1f}); on {card}")
+    for side in ("eager", "graph"):
+        r = res[side]
+        print(f"graphs {c.label} {side}, {_tf32()}: host "
+              f"{', '.join(f'{v:.1f}' for v in r['host_us_per_call'])} µs "
+              f"per call; {', '.join(f'{v:.3f}' for v in r['msps'])} "
+              f"Msamples/s ({N_STREAMS} streams, pairs eager/graph in "
+              f"turns); device {r['device_ms_per_block']:.4f} ms per block, "
+              f"busy share {', '.join(f'{v:.3f}' for v in r['busy_share'])}"
+              f"; on {card}")
+    return res
+
+
+def check_jit_decode(dev, card: str, tally: GraphLaunches) -> dict:
+    """``jit_decode`` on BBC's 2 frames (404 codewords of the BBC code,
+    BPSK at LDPC_ES_N0_DB) equal to ``decode``'s hard bits and ``ok``, on
+    the capture and on a replay on other LLRs; each replay makes 61
+    min-sum launches.  Every graph call goes through ``tally``.  Returns
+    host ms and device ms per call, graph and eager."""
+    from dtv_utils_torch.ops import ldpc_decode as ld
+
+    cfg = dvbt2_bbc()
+    fn = tally.wrap(ld.jit_decode(cfg, LDPC_ITERATIONS, device=dev))
+    llrs = [coded_llrs(cfg, 2 * cfg.fec_blocks, LDPC_ES_N0_DB, seed, dev)
+            for seed in (GRAPH_SEED, GRAPH_SEED + 1)]
+    for llr in llrs:
+        before = dict(_build.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hard, ok = fn(llr)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        made = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                if n != before[k]}
+        want_hard, want_ok = ld.decode(cfg, llr, LDPC_ITERATIONS)
+        if not (torch.equal(hard, want_hard) and torch.equal(ok, want_ok)):
+            raise AssertionError("jit_decode differs from decode")
+        if made != {"ldpc_check": LDPC_ITERATIONS,
+                    "ldpc_variable": LDPC_ITERATIONS + 1}:
+            raise AssertionError(f"jit_decode launched {made}")
+    res = {}
+    for side, f in (("eager", lambda x: ld.decode(cfg, x, LDPC_ITERATIONS)),
+                    ("graph", fn)):
+        f(llrs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f(llrs[1])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        res[side] = {"host_ms": host_ms,
+                     "device_ms": _queued_ms([functools.partial(f, llrs[1])]
+                                             * 3)}
+    print(f"graphs jit_decode bbc, {llrs[0].shape[0]} codewords: equal to "
+          f"decode (hard bits, ok) on the capture and a replay, "
+          f"{LDPC_ITERATIONS} check + {LDPC_ITERATIONS + 1} variable "
+          f"launches per replay, all ok {bool(ok.all())}; host ms per call "
+          f"eager {res['eager']['host_ms']:.3f}, graph "
+          f"{res['graph']['host_ms']:.3f}; device ms eager "
+          f"{res['eager']['device_ms']:.4f}, graph "
+          f"{res['graph']['device_ms']:.4f}; on {card}")
+    return res
+
+
+def check_graphs(dev, card: str) -> dict:
+    """Step 12b: the captured calls at full width (``graph_chains`` and
+    ``jit_decode``).  The kernel launches of the graph calls alone are
+    counted, from 0 (the eager calls they are compared with count
+    nothing); fails if the FIR or a min-sum kernel was launched in no
+    graph.  Returns each chain's figures and those launches."""
+    from dtv_utils_torch.utils import graph
+
+    t0 = time.perf_counter()
+    graph.release(dev)
+    torch.cuda.empty_cache()
+    print(f"host probe: {host_probe_us(dev):.3f} µs per tiny launch, on "
+          f"{card}")
+    tally = GraphLaunches()
+    chains = [check_graph_chain(dev, card, c, tally)
+              for c in graph_chains(dev)]
+    decode = check_jit_decode(dev, card, tally)
+    launches = {k: tally.counts[k] for k in GRAPH_KERNELS}
+    if not all(launches.values()) or any(
+            n for k, n in tally.counts.items() if k not in GRAPH_KERNELS):
+        raise AssertionError(f"graphs: the graphs' kernel launches "
+                             f"{tally.counts}, want {GRAPH_KERNELS} and no "
+                             "other")
+    print(f"graphs kernel launches (in graph replays only): {launches}; pool "
+          f"{graph.pool_bytes(dev)} bytes; graphs phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    graph.release(dev)
+    torch.cuda.empty_cache()
+    return {"chains": chains, "jit_decode": decode, "launches": launches}
+
+
 def check_bench(card: str, steps: dict[str, float]) -> int:
     """Step 13: the port's bench surfaces on the card.  ``bench_j83b`` in
     this process with a short deadline: its line, and one FIR kernel
@@ -2541,15 +2861,14 @@ def check_bench(card: str, steps: dict[str, float]) -> int:
     and ``python -m dtv_utils_torch.scaling_bench --gpu``'s row.  Returns
     the FIR's launches in ``bench_j83b``."""
     from dtv_utils_torch import bench
-    from dtv_utils_torch.ops import fir
     from dtv_utils_torch.utils.metrics import Metrics
 
     t0 = time.perf_counter()
     sink = io.StringIO()
-    fir.LAUNCHES = 0
+    _build.LAUNCHES["fir_interp2"] = 0
     bench.bench_j83b(Metrics(json_out=sink, suppress_human=True),
                      time.perf_counter() + BENCH_J83B_S)
-    launches = fir.LAUNCHES
+    launches = _build.LAUNCHES["fir_interp2"]
     if not sink.getvalue():
         raise AssertionError("bench_j83b emitted no line")
     last = json.loads(sink.getvalue().splitlines()[-1])
@@ -2632,8 +2951,8 @@ def host_probe_us(dev) -> float:
 def main() -> int:
     from dtv_utils_torch import resolve_device
     from dtv_utils_torch.core.config import J83bConfig
-    from dtv_utils_torch.ops import _build, fir
     from dtv_utils_torch.tx import j83b as txq
+    from dtv_utils_torch.utils import graph
 
     golden = json.loads(GOLDEN.read_text())
     dvbt_golden = json.loads(DVBT_GOLDEN.read_text())
@@ -2693,6 +3012,8 @@ def main() -> int:
     dvbt2_iq, _ = check_dvbt2_slice(dev, dvbt2_golden)
     check_dvbt2_papr(dev, dvbt2_golden)
     check_dvbt2_cli(dvbt2_golden, dvbt2_iq, "cuda")
+    graph.release(dev)      # steps 6b-12 run as before, with no graph pool
+    torch.cuda.empty_cache()
 
     # 6b. the decoder kernels (Viterbi ACS and traceback, K=7 and K=5; the
     # min-sum check and variable kernels) against their plain versions on
@@ -2712,12 +3033,12 @@ def main() -> int:
     # CPU stage by stage, the CLIs, receive throughput and profiles: DVB-T
     # and J.83B, a long DVB-T call under a memory cap, then DVB-T2 (hard
     # and soft, BBC and blade)
-    from dtv_utils_torch.ops import ldpc_decode, viterbi
+    viterbi_kernels = ("viterbi_acs", "viterbi_traceback")
     t_rx = time.perf_counter()
     rx_launches: dict[str, dict] = {}
-    with _main_path(rx_launches, "dvbt rx", viterbi.LAUNCHES):
+    with _main_path(rx_launches, "dvbt rx", viterbi_kernels):
         dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
-    with _main_path(rx_launches, "j83b rx", viterbi.LAUNCHES):
+    with _main_path(rx_launches, "j83b rx", viterbi_kernels):
         j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
     check_rx_stages(dev, dvbt_noisy, iq, j83b_noisy)
     _rx_cli("dvbt-rx", dvbt_iq, dvbt_rx.ts, "cuda")
@@ -2725,7 +3046,8 @@ def main() -> int:
     call_s = time_rx(dev, card, dvbt_golden, dvbt_iq, iq)
     profile_dvbt_rx(dev, card, dvbt_iq, call_s)
     check_dvbt_rx_capped(dev, card, dvbt_golden)
-    with _main_path(rx_launches, "dvbt2 rx", ldpc_decode.LAUNCHES):
+    with _main_path(rx_launches, "dvbt2 rx",
+                    ("ldpc_check", "ldpc_variable")):
         dvbt2_rx, dvbt2_noisy = check_dvbt2_rx(dev, dvbt2_golden, dvbt2_iq)
     check_dvbt2_stages(dev, dvbt2_iq, dvbt2_noisy)
     _rx_cli("dvbt2-rx", dvbt2_iq, dvbt2_rx.ts, "cuda", ["--profile", "bbc"])
@@ -2807,9 +3129,9 @@ def main() -> int:
     serve_batched(dev, card, dvbt_8, dvbt_1)
     serve_batched(dev, card, j83b_4, batched_j83b(dev, 1))
     j83b_x = firsts[j83b_4.label][0]
-    fir.LAUNCHES = 0
+    _build.LAUNCHES["fir_interp2"] = 0
     j83b_4.call(j83b_x, j83b_4.pos0)
-    j83b_batched_launches = fir.LAUNCHES
+    j83b_batched_launches = _build.LAUNCHES["fir_interp2"]
     check_sharded(dev, firsts)
     print(f"batched and sharded phase: {time.perf_counter() - t_batch:.1f} s")
 
@@ -2831,6 +3153,11 @@ def main() -> int:
     print(f"profiler, rates and native phase: "
           f"{time.perf_counter() - t_prof:.1f} s")
 
+    # 12b. the captured calls (utils/graph): each modulator's graph and
+    # jit_decode at full width against the eager chain bit for bit, the
+    # FIR launched once per J.83B replay, eager and graph timed in turns
+    graphs = check_graphs(dev, card)
+
     # 13. the bench surfaces: bench_j83b in this process with its FIR
     # launches counted, `python -m dtv_utils_torch.bench --stress` beside
     # steps 8, 9 and 11's medians of the same shapes, and
@@ -2844,6 +3171,7 @@ def main() -> int:
         "launches": launches,
         "launches_per_batched_j83b_call": j83b_batched_launches,
         "launches_in_bench_j83b": bench_fir_launches,
+        "launches_in_graphs": graphs["launches"]["fir_interp2"],
         "batched_j83b_superblocks": j83b_x.shape[0], "max_abs_err": max_err,
         "ms": t["kernel_cold"], "cold_ms": t["kernel_cold"],
         "warm_ms": t["kernel_warm"], "plain_ms": t["plain_cold"],
@@ -2869,6 +3197,7 @@ def main() -> int:
             "replaces": f"dtv_utils_tpu/ops/{replaces}",
             "launches": sum(rx_launches[r][name] for r in runs),
             "launches_by_run": {r: rx_launches[r][name] for r in runs},
+            "launches_in_graphs": graphs["launches"].get(name, 0),
             "max_abs_err": max(dec[c][name]["max_abs_err"]
                                for c in (case, *extra)),
             "ms": m["cold"], "cold_ms": m["cold"], "warm_ms": m["warm"],

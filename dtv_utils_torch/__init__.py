@@ -8,6 +8,9 @@ to the same outputs.  This package imports torch and numpy only, never JAX.
 Idiom: plain functions on tensors, run eagerly; stream state is a
 ``@dataclass`` of tensors; public entry points take an explicit ``device``
 (see :func:`resolve_device` — a CUDA request never falls back to the CPU).
+Where the JAX package runs a call as one compiled program (``jax.jit``),
+the port replays one captured CUDA graph per argument shape
+(``utils/graph.py``).
 Every module of the JAX package has its counterpart here, but for the TPU
 workarounds.  The one hand-written kernel is the J.83B RRC interpolator
 (``csrc/fir_interp2.cu``, wrapped by ``ops/fir.py``), the port of the JAX

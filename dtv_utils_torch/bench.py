@@ -50,6 +50,11 @@ carried; DVB-T2 is one stream of 4 frames per launch through the batched
 modulator (``parallel/stream._batched_dvbt2_modulator``, each launch from
 frame 0: the program ``bench.py`` runs on a one-device mesh).  The per-bench
 launch size is recorded in the metric's `blocks_per_dispatch` field.
+Each launch is what ``bench.py`` dispatches, one compiled program: the
+captured CUDA graph of ``tx/dvbt.jit_modulator`` (one graph shared by the
+4 streams, each stream's state copied in and out), of
+``tx/j83b.jit_modulator``, and of the batched DVB-T2 runner.  The graphs
+are captured in the warm-up round, never inside a timed segment.
 
 vs_baseline for the modulators is the reference's implied real-time floor:
 the bladeRF sample rate each chain must sustain (dvbt-blade.py:146 →
@@ -206,7 +211,8 @@ def _ts_rounds(seed: int, shape, count: int, dev: torch.device):
 
 def bench_dvbt(metrics, deadline, *, device="cuda", cfg=None) -> None:
     """DVB-T flagship (8K 64-QAM 7/8 GI 1/32, 8 MHz; ``cfg`` for the
-    tests): 4 streams round-robin, one superframe per launch."""
+    tests): 4 streams round-robin, one superframe per launch, each a replay
+    of ``txd.jit_modulator``'s graph."""
     from dtv_utils_torch.core.config import (CodeRate, Constellation,
                                              DvbtConfig, GuardInterval,
                                              TransmissionMode)
@@ -220,8 +226,7 @@ def bench_dvbt(metrics, deadline, *, device="cuda", cfg=None) -> None:
     _hb("dvbt", "imports done")
     states = [txd.init_state(cfg, device=dev) for _ in range(N_STREAMS)]
     _deadline_segments(
-        metrics, METRIC_OF["dvbt"],
-        lambda ts, st: txd.modulate_superframe(cfg, ts, st),
+        metrics, METRIC_OF["dvbt"], txd.jit_modulator(cfg, device=dev),
         _ts_rounds(0, cfg.ts_bytes_per_superframe, N_STREAMS, dev), states,
         samples_per_round=N_STREAMS * cfg.samples_per_superframe,
         rounds_per_segment=4, floor=DVBT_FLOOR_MSPS, deadline=deadline,
@@ -231,7 +236,8 @@ def bench_dvbt(metrics, deadline, *, device="cuda", cfg=None) -> None:
 def bench_dvbt2(metrics, deadline, *, device="cuda", cfg=None,
                 n_blocks=4) -> None:
     """DVB-T2 BBC (``cfg`` for the tests): one stream, ``n_blocks`` frames
-    per launch through the batched modulator, each launch from frame 0."""
+    per launch through the captured batched modulator, each launch from
+    frame 0."""
     from dtv_utils_torch.models.dvbt2 import PROFILES
     from dtv_utils_torch.parallel import stream as ps
     from dtv_utils_torch.tx import dvbt2 as txt2
@@ -250,7 +256,8 @@ def bench_dvbt2(metrics, deadline, *, device="cuda", cfg=None,
 
 def bench_j83b(metrics, deadline, *, device="cuda") -> None:
     """J.83B 64-QAM: 4 streams round-robin, one superblock per launch, each
-    launch one FIR kernel launch (``csrc/fir_interp2.cu``)."""
+    a replay of ``txq.jit_modulator``'s graph with one FIR kernel launch
+    in it (``csrc/fir_interp2.cu``)."""
     from dtv_utils_torch.core.config import J83bConfig
     from dtv_utils_torch.tx import j83b as txq
 
@@ -259,8 +266,7 @@ def bench_j83b(metrics, deadline, *, device="cuda") -> None:
     _hb("j83b", "imports done")
     states = [txq.init_state(cfg, device=dev) for _ in range(N_STREAMS)]
     _deadline_segments(
-        metrics, METRIC_OF["j83b"],
-        lambda ts, st: txq.modulate_superblock(cfg, ts, st),
+        metrics, METRIC_OF["j83b"], txq.jit_modulator(cfg, device=dev),
         _ts_rounds(2, txq.SUPERBLOCK_BYTES, N_STREAMS, dev), states,
         samples_per_round=N_STREAMS * 2 * txq.SUPERBLOCK_SYMBOLS,
         rounds_per_segment=2, floor=J83B_FLOOR_MSPS, deadline=deadline,

@@ -10,6 +10,11 @@ rebuilds it, an unchanged tree reuses it.  ``-Xptxas -v`` makes ptxas
 report each kernel's registers, shared memory and spills; that report,
 with each ``nvcc``'s seconds, is kept beside the library (``build_log``).
 Nothing here runs at import time; the first CUDA call builds.
+
+Every kernel launch goes through ``launch``, which counts it in
+``LAUNCHES``: the one counter of the port's kernels, which the tests and
+``chip_smoke.py`` read and ``utils/graph`` adds a graph replay's launches
+to.
 """
 
 from __future__ import annotations
@@ -31,6 +36,24 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_LAUNCHERS = {
+    # kernel: (its C launcher, the launcher's arguments, the stream last)
+    "fir_interp2": ("fir_interp2_split_launch",
+                    [_vp, _ll, _vp, _ll, _vp, _ll, _ll, _vp, _vp]),
+    "viterbi_acs": ("viterbi_acs_launch",
+                    [_i, _vp, _ll, _ll, _i, _i, _vp, _vp, _vp]),
+    "viterbi_traceback": ("viterbi_traceback_launch",
+                          [_i, _vp, _vp, _ll, _ll, _vp, _vp]),
+    "ldpc_check": ("ldpc_check_launch", [_vp] * 6 + [_ll] * 5 + [_vp]),
+    "ldpc_variable": ("ldpc_variable_launch",
+                      [_vp] * 5 + [_ll] * 5 + [_vp, _vp]),
+}
+
+LAUNCHES = dict.fromkeys(_LAUNCHERS, 0)
+"""Launches per kernel: ``launch`` adds one where it launches a kernel,
+and nowhere else."""
 
 
 def _nvcc() -> str:
@@ -98,13 +121,7 @@ def library() -> ctypes.CDLL:
             out.with_suffix(".log").write_text(log)
             os.replace(lib_tmp, out)
     lib = ctypes.CDLL(str(out))
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name, args in (
-            ("fir_interp2_split_launch", [vp, ll, vp, ll, vp, ll, ll, vp, vp]),
-            ("viterbi_acs_launch", [i, vp, ll, ll, i, i, vp, vp, vp]),
-            ("viterbi_traceback_launch", [i, vp, vp, ll, ll, vp, vp]),
-            ("ldpc_check_launch", [vp] * 6 + [ll] * 5 + [vp]),
-            ("ldpc_variable_launch", [vp] * 5 + [ll] * 5 + [vp, vp])):
+    for name, args in _LAUNCHERS.values():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -122,14 +139,16 @@ def on_card(x: torch.Tensor) -> bool:
     return True
 
 
-def launch(name: str, device, *args) -> None:
-    """Call the library's C launcher ``name`` with ``args`` and the current
-    stream of ``device`` (a CUDA ``torch.device``) as the last argument;
-    raise if it returns a CUDA error.  The build happens at the first
-    call."""
+def launch(kernel: str, device, *args) -> None:
+    """Launch ``kernel`` (a key of ``LAUNCHES``): call its C launcher with
+    ``args`` and the current stream of ``device`` (a CUDA
+    ``torch.device``) as the last argument, raise if it returns a CUDA
+    error, else count the launch.  The build happens at the first call."""
+    name = _LAUNCHERS[kernel][0]
     fn = getattr(library(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1

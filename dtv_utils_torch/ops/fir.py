@@ -26,10 +26,6 @@ from dtv_utils_torch.ops import _build
 NTAPS = 100
 HIST = NTAPS // 2 - 1          # 49 history samples carried between calls
 
-LAUNCHES = 0
-"""Number of kernel launches so far (the CPU path does not count)."""
-
-
 @functools.cache
 def _phase_taps(taps_bytes: bytes) -> np.ndarray:
     """float32 [2, 50]: row p is taps[p::2] reversed, as the kernel wants."""
@@ -128,13 +124,11 @@ def _launch(tail: torch.Tensor, cells: torch.Tensor, out: torch.Tensor,
             phase_taps: np.ndarray) -> torch.Tensor:
     """Run the kernel on checked CUDA rows: ``out [2, 2n]`` (contiguous)
     from ``tail [2, 49]`` and ``cells [2, n]``.  Returns ``out``."""
-    global LAUNCHES
     n = cells.shape[1]
     if n == 0:
         return out
-    _build.launch("fir_interp2_split_launch", cells.device,
-                  tail.data_ptr(), tail.stride(0), cells.data_ptr(),
-                  cells.stride(0), out.data_ptr(), out.stride(0), n,
+    _build.launch("fir_interp2", cells.device, tail.data_ptr(),
+                  tail.stride(0), cells.data_ptr(), cells.stride(0),
+                  out.data_ptr(), out.stride(0), n,
                   phase_taps.ctypes.data_as(ctypes.c_void_p))
-    LAUNCHES += 1
     return out

@@ -58,7 +58,8 @@ and the check update (``_check_update``, one thread per check and
 codeword, the state in place).  On a CPU tensor the same wrappers take the plain versions,
 ``variable_totals_reference`` and ``check_update_reference``
 (``minsum_iteration_reference`` is the two in turn); there is no other
-route and no fallback.  ``LAUNCHES`` counts the kernels' launches.
+route and no fallback.  ``_build.LAUNCHES`` counts the kernels'
+launches.
 
 Fixed iteration count, no early exit, and no host sync: the 30 iterations
 run inside a ``torch.profiler`` range named ``ldpc_minsum``.
@@ -74,6 +75,8 @@ import torch
 from dtv_utils_torch.core.config import Dvbt2Config
 from dtv_utils_torch.ops import _build
 from dtv_utils_torch.tx import dvbt2_tables as T
+from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.graph import Jit
 
 MINSUM_SCALE = 0.75          # normalized min-sum correction factor
 _BIG = 1e30                  # the reference's "no second minimum"
@@ -82,10 +85,6 @@ NO_UNIQUE = 63               # meta's slot field when the minimum is tied
 MAX_CHECK_DEGREE = SLOT_SHIFT
 PAIR_SHIFT = 6               # var_pairs: check << 6 | slot
 SLICE_COLS = 32              # codewords per slice
-
-LAUNCHES = {"ldpc_check": 0, "ldpc_variable": 0}
-"""Kernel launches so far, per kernel (the CPU path does not count)."""
-
 
 @functools.cache
 def _graph(cfg: Dvbt2Config) -> dict[str, np.ndarray]:
@@ -319,11 +318,10 @@ def _variable_totals(dg: dict, llr_s: torch.Tensor, state: tuple,
         variable_totals_reference(dg, llr_s, state, totals)
         return
     vp = dg["var_pairs"]
-    _build.launch("ldpc_variable_launch", totals.device, llr_s.data_ptr(),
+    _build.launch("ldpc_variable", totals.device, llr_s.data_ptr(),
                   *(x.data_ptr() for x in state), vp.data_ptr(),
                   dg["nldpc"], dg["n_par"], vp.shape[0], dg["batch"],
                   dg["cols"], totals.data_ptr())
-    LAUNCHES["ldpc_variable"] += 1
 
 
 def _check_update(dg: dict, totals: torch.Tensor, state: tuple) -> tuple:
@@ -333,11 +331,10 @@ def _check_update(dg: dict, totals: torch.Tensor, state: tuple) -> tuple:
     _check_args(dg, {"totals": (totals, dg["nldpc"])}, state)
     if not _build.on_card(totals):
         return check_update_reference(dg, totals, state)
-    _build.launch("ldpc_check_launch", totals.device, totals.data_ptr(),
+    _build.launch("ldpc_check", totals.device, totals.data_ptr(),
                   *(x.data_ptr() for x in state),
                   dg["chk_start"].data_ptr(), dg["edge_var"].data_ptr(),
                   dg["nldpc"], dg["n_par"], dg["D"], dg["batch"], dg["cols"])
-    LAUNCHES["ldpc_check"] += 1
     return state
 
 
@@ -380,3 +377,20 @@ def decode(cfg: Dvbt2Config, llr: torch.Tensor, iterations: int = 30
         _variable_totals(dg, llr_s, state, totals)
     del llr_s, state                     # freed before the hard decision
     return _finish(dg, totals)
+
+
+@functools.cache
+def _jit_decode(cfg: Dvbt2Config, iterations: int,
+                device: torch.device) -> Jit:
+    return Jit(functools.partial(decode, cfg, iterations=iterations),
+               device=device)
+
+
+def jit_decode(cfg: Dvbt2Config, iterations: int = 30, *,
+               device: str | torch.device = "cuda") -> Jit:
+    """``fn(llr) -> (hard, ok)``: ``decode`` as one captured CUDA graph per
+    batch size on ``device`` (the 2·iterations + 1 kernel launches and the
+    hard decision in one graph launch; ``utils/graph``; eager through the
+    same static buffers on the CPU), the counterpart of the reference's
+    ``jit_decode``."""
+    return _jit_decode(cfg, iterations, resolve_device(device))

@@ -23,7 +23,8 @@ whose bool decisions ``pack_decisions`` packs, and ``traceback_reference``,
 a reverse loop of three ops per step); there is no other route and no
 fallback.  The launches and the plain loops run inside ``torch.profiler``
 ranges named ``viterbi_acs`` and ``viterbi_traceback``, so a trace can
-attribute their device time; ``LAUNCHES`` counts the kernels' launches.
+attribute their device time; ``_build.LAUNCHES`` counts the kernels'
+launches.
 
 The arithmetic is the reference's, operation for operation, in the kernels
 and the plain versions alike, so decisions match it bit for bit on
@@ -64,9 +65,6 @@ OVERLAP = 96
 # The codes csrc/viterbi.cu is built for, K: (g1, g2); its ACS fixes the
 # branch metrics' signs at compile time.
 KERNEL_CODES = {DVBT_K: (DVBT_G1, DVBT_G2), J83B_K: (J83B_G1, J83B_G2)}
-
-LAUNCHES = {"viterbi_acs": 0, "viterbi_traceback": 0}
-"""Kernel launches so far, per kernel (the CPU path does not count)."""
 
 
 def seam_overlap(k: int, num: int, den: int) -> int:
@@ -251,10 +249,9 @@ def _acs(pairs: torch.Tensor, k: int, g1: int,
                          device=pairs.device)
     final = torch.empty((B, S), dtype=torch.float32, device=pairs.device)
     with torch.profiler.record_function("viterbi_acs"):
-        _build.launch("viterbi_acs_launch", pairs.device, k,
+        _build.launch("viterbi_acs", pairs.device, k,
                       pairs.data_ptr(), L, B, g1, g2, packed.data_ptr(),
                       final.data_ptr())
-    LAUNCHES["viterbi_acs"] += 1
     return packed, final
 
 
@@ -284,10 +281,9 @@ def _traceback(packed: torch.Tensor, final: torch.Tensor,
     L, B, _ = packed.shape
     bits = torch.empty((L, B), dtype=torch.uint8, device=packed.device)
     with torch.profiler.record_function("viterbi_traceback"):
-        _build.launch("viterbi_traceback_launch", packed.device, k,
+        _build.launch("viterbi_traceback", packed.device, k,
                       packed.data_ptr(), final.data_ptr(), L, B,
                       bits.data_ptr())
-    LAUNCHES["viterbi_traceback"] += 1
     return bits
 
 

@@ -21,10 +21,17 @@ a pure function of the previous block's raw TS tail:
     (``_j83b_conv_consts``); the precoder quadrant and the filter history
     are not functions of the raw tail, see ``sharded_j83b_modulator``.
 
-Block indices are Python ints and every product of an index with a block
-size is taken in Python, so no phase wraps however long the stream (the
-reference computes ``global_idx * blk`` in int32, which wraps at DVB-T2
-BBC's frame 1980).
+The one-device batched modulators are captured calls, as the reference's
+are jitted: ``batched_dvbt_modulator`` and ``_batched_dvbt2_modulator``
+return a ``utils/graph.Jit`` of the eager ``modulate_dvbt_blocks`` /
+``modulate_dvbt2_blocks``, one CUDA graph per batch size on the card.
+Their block index ``start_idx`` is a device scalar, a 0-d int32 tensor (a
+Python int is turned into one), and every use of it is on the device: a
+block-0 state is picked by ``torch.where``, and every product of an index
+with a block size is taken in int64, so no phase wraps however long the
+stream (the reference computes ``global_idx * blk`` in int32, which wraps
+at DVB-T2 BBC's frame 1980).  The sharded modulators call the eager
+functions: their collectives cannot be captured.
 
 Across processes the ``torch.distributed`` process group plays the part of
 the reference's mesh axis ``seq``: rank r holds global blocks
@@ -39,6 +46,7 @@ gloo for the CPU; a sharded function raises without an initialized group.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -54,6 +62,7 @@ from dtv_utils_torch.tx import dvbt as txd
 from dtv_utils_torch.tx import dvbt2 as txt2
 from dtv_utils_torch.tx import j83b as txq
 from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.graph import Jit
 
 HALO_PACKETS = 12      # 12·204 = 2448 ≥ 2244-byte interleaver carry
 T2_HALO_BYTES = 187    # the DVB-T2 CRC-8 window
@@ -114,25 +123,62 @@ def _check_blocks(blocks: torch.Tensor, blk: int,
     return blocks.shape[0]
 
 
+def block_index(idx: int | torch.Tensor, device: torch.device
+                ) -> torch.Tensor:
+    """A block index as the 0-d int32 tensor on ``device`` that the
+    batched modulators take: a Python int becomes one by a fill on the
+    device (no host-to-device copy, no sync)."""
+    if isinstance(idx, torch.Tensor):
+        if idx.dim() or idx.dtype != torch.int32 or idx.device != device:
+            raise ValueError(f"start_idx must be a 0-d int32 tensor on "
+                             f"{device}, got {idx.dtype} {tuple(idx.shape)} "
+                             f"on {idx.device}")
+        return idx
+    if not 0 <= idx < 2**31:
+        raise ValueError(f"block index {idx} outside int32")
+    return torch.full((), idx, dtype=torch.int32, device=device)
+
+
+def _tail(prev_tail: torch.Tensor | None, n: int,
+          device: torch.device) -> torch.Tensor:
+    """``prev_tail``, or n zero bytes where there is none (block 0)."""
+    if prev_tail is None:
+        return torch.zeros(n, dtype=torch.uint8, device=device)
+    if prev_tail.shape != (n,) or prev_tail.dtype != torch.uint8:
+        raise ValueError(f"prev_tail must be uint8 [{n}], got "
+                         f"{prev_tail.dtype} {tuple(prev_tail.shape)}")
+    return prev_tail
+
+
+@functools.cache
+def _jit_blocks(fn, cfg, device: torch.device) -> Jit:
+    """The captured form of a batched call, one per (call, config,
+    device): every runner made for them shares its graphs."""
+    return Jit(functools.partial(fn, cfg), device=device)
+
+
 # ---------------------------------------------------------------------------
 # DVB-T
 # ---------------------------------------------------------------------------
 
 def derive_state(cfg: DvbtConfig, prev_tail: torch.Tensor,
-                 block_idx: int) -> txd.DvbtState:
+                 block_idx: int | torch.Tensor) -> txd.DvbtState:
     """The stream state at the start of superframe ``block_idx`` (global,
-    >= 1) from the previous superframe's last HALO_PACKETS packets of raw
-    TS bytes, uint8 [HALO_PACKETS*188], on ``prev_tail.device``.  For
-    block 0 the stream starts from ``init_state`` instead."""
-    if block_idx < 1:
+    >= 1; an int, or a 0-d int32 tensor on ``prev_tail.device``) from the
+    previous superframe's last HALO_PACKETS packets of raw TS bytes, uint8
+    [HALO_PACKETS*188], on ``prev_tail.device``.  For block 0 the stream
+    starts from ``init_state`` instead."""
+    if not isinstance(block_idx, torch.Tensor) and block_idx < 1:
         raise ValueError(f"block_idx {block_idx}: block 0 starts from "
                          "init_state")
     n_pkt = cfg.rs_blocks_per_superframe
-    halo_phase = (block_idx * n_pkt - HALO_PACKETS) % 8
     dev = prev_tail.device
-    dispersed = prev_tail ^ txd.dispersal_rows(HALO_PACKETS, dev)[halo_phase]
+    pkt = block_index(block_idx, dev).to(torch.int64) * n_pkt
+    halo_phase = (pkt - HALO_PACKETS) % 8
+    row = txd.dispersal_rows(HALO_PACKETS, dev).index_select(
+        0, halo_phase.reshape(1))[0]
     rs_tail = DVBT_RS().encode_bytes(
-        dispersed.reshape(HALO_PACKETS, 188)).reshape(-1)
+        (prev_tail ^ row).reshape(HALO_PACKETS, 188)).reshape(-1)
     C = forney_carry_len(txd.OUTER_I, txd.OUTER_M)
     # The last outer-interleaved byte of the previous block is its RS byte
     # n-1-(11*204) = n-2245 (branch 11 of the Forney commutator), which sits
@@ -141,30 +187,49 @@ def derive_state(cfg: DvbtConfig, prev_tail: torch.Tensor,
     last_byte = rs_tail[HALO_PACKETS * 204 - C - 1]
     shifts = torch.arange(6, dtype=torch.uint8, device=dev)
     return txd.DvbtState(
-        packet_phase=torch.full((), block_idx * n_pkt % 8, dtype=torch.int32,
-                                device=dev),
+        packet_phase=(pkt % 8).to(torch.int32),
         outer_carry=rs_tail[-C:].clone(),
         conv_state=(last_byte >> shifts) & 1)
 
 
+def modulate_dvbt_blocks(cfg: DvbtConfig, ts_blocks: torch.Tensor,
+                         prev_tail: torch.Tensor,
+                         start_idx: torch.Tensor) -> torch.Tensor:
+    """The eager batched DVB-T call: ``ts_blocks`` uint8 [B, blk], the
+    consecutive superframes start_idx … start_idx+B−1 of a stream, in one
+    pass of the chain → IQ complex64 [B, samples_per_superframe].  The
+    state at the first block is derived from ``prev_tail`` (uint8
+    [HALO_PACKETS*188], the last bytes of superframe start_idx−1) and
+    replaced by ``init_state`` where ``start_idx`` (a 0-d int32 tensor, see
+    ``block_index``) is 0, by ``torch.where`` on the device."""
+    dev = ts_blocks.device
+    derived = derive_state(cfg, prev_tail, start_idx)
+    init = txd.init_state(cfg, device=dev)
+    state = txd.DvbtState(**{
+        f.name: torch.where(start_idx == 0, getattr(init, f.name),
+                            getattr(derived, f.name))
+        for f in dataclasses.fields(init)})
+    iq, _ = txd.modulate_superframe(cfg, ts_blocks.reshape(-1), state)
+    return iq.reshape(ts_blocks.shape[0], -1)
+
+
 def batched_dvbt_modulator(cfg: DvbtConfig, *, device="cuda"):
-    """One-device batched modulator: ``fn(ts_blocks, prev_tail,
-    start_idx)`` modulates ``ts_blocks`` uint8 [B, blk], the consecutive
-    superframes start_idx … start_idx+B−1 of a stream, in one pass of the
-    chain and returns IQ complex64 [B, samples_per_superframe] on
-    ``device``.  ``prev_tail`` (uint8 [HALO_PACKETS*188], the last bytes of
-    superframe start_idx−1) is read only when start_idx > 0; block 0
-    starts from ``init_state``."""
+    """One-device batched modulator, the counterpart of the reference's
+    jitted one: ``fn(ts_blocks, prev_tail, start_idx)`` runs
+    ``modulate_dvbt_blocks`` as one captured CUDA graph per batch size on
+    ``device`` (eager through the same static buffers on the CPU) and
+    returns IQ complex64 [B, samples_per_superframe] that is the caller's.
+    ``start_idx`` is a 0-d int32 tensor on ``device`` or an int;
+    ``prev_tail`` is read only where start_idx > 0 (None: zeros)."""
     dev = resolve_device(device)
     blk = cfg.ts_bytes_per_superframe
+    call = _jit_blocks(modulate_dvbt_blocks, cfg, dev)
 
     def run(ts_blocks: torch.Tensor, prev_tail: torch.Tensor | None,
-            start_idx: int) -> torch.Tensor:
-        B = _check_blocks(ts_blocks, blk, dev)
-        state = (txd.init_state(cfg, device=dev) if start_idx == 0
-                 else derive_state(cfg, prev_tail, start_idx))
-        iq, _ = txd.modulate_superframe(cfg, ts_blocks.reshape(-1), state)
-        return iq.reshape(B, -1)
+            start_idx: int | torch.Tensor) -> torch.Tensor:
+        _check_blocks(ts_blocks, blk, dev)
+        return call(ts_blocks, _tail(prev_tail, HALO_PACKETS * 188, dev),
+                    block_index(start_idx, dev))
 
     return run
 
@@ -183,8 +248,9 @@ def sharded_dvbt_modulator(cfg: DvbtConfig, group=None):
         dev = local_blocks.device
         _check_backend(group, dev)
         prev = _gather_prev(local_blocks[-1, -halo:], group)
-        return batched_dvbt_modulator(cfg, device=dev)(
-            local_blocks, prev, dist.get_rank(group) * L)
+        return modulate_dvbt_blocks(
+            cfg, local_blocks, _tail(prev, halo, dev),
+            block_index(dist.get_rank(group) * L, dev))
 
     return run
 
@@ -193,32 +259,47 @@ def sharded_dvbt_modulator(cfg: DvbtConfig, group=None):
 # DVB-T2
 # ---------------------------------------------------------------------------
 
-def _dvbt2_state(cfg: Dvbt2Config, prev_tail: torch.Tensor | None,
-                 frame_idx: int, device: torch.device) -> txt2.Dvbt2State:
-    """The state at the start of T2 frame ``frame_idx`` of a stream: the
-    packet phase (frame_idx * payload_bytes) mod 188 in Python ints, and
-    the previous frame's last 187 raw bytes (zeros for frame 0)."""
-    if frame_idx == 0:
-        return txt2.init_state(cfg, device=device)
-    phase = frame_idx * cfg.payload_bytes_per_frame % 188
-    return txt2.Dvbt2State(
-        packet_phase=torch.full((), phase, dtype=torch.int32, device=device),
-        prev_tail=prev_tail)
+def _dvbt2_state(cfg: Dvbt2Config, prev_tail: torch.Tensor,
+                 frame_idx: int | torch.Tensor, device: torch.device
+                 ) -> txt2.Dvbt2State:
+    """The state at the start of T2 frame ``frame_idx`` of a stream (an
+    int or a 0-d int32 tensor on ``device``): the packet phase
+    (frame_idx * payload_bytes) mod 188, taken in int64 on the device, and
+    the previous frame's last 187 raw bytes, zeros for frame 0 (picked by
+    ``torch.where``)."""
+    idx = block_index(frame_idx, device)
+    phase = idx.to(torch.int64) * cfg.payload_bytes_per_frame % 188
+    return txt2.Dvbt2State(packet_phase=phase.to(torch.int32),
+                           prev_tail=torch.where(idx == 0, 0, prev_tail))
+
+
+def modulate_dvbt2_blocks(cfg: Dvbt2Config, ts_frames: torch.Tensor,
+                          prev_tail: torch.Tensor,
+                          start_idx: torch.Tensor) -> torch.Tensor:
+    """The eager batched DVB-T2 call: ``ts_frames`` uint8 [B,
+    payload_bytes], frames start_idx … start_idx+B−1 of a stream (a 0-d
+    int32 tensor, see ``block_index``), in one pass of the chain → IQ
+    complex64 [B, samples_per_frame]; ``prev_tail`` uint8 [187] is read
+    only where start_idx > 0."""
+    state = _dvbt2_state(cfg, prev_tail, start_idx, ts_frames.device)
+    iq, _ = txt2.modulate_frame(cfg, ts_frames.reshape(-1), state)
+    return iq.reshape(ts_frames.shape[0], -1)
 
 
 def _batched_dvbt2_modulator(cfg: Dvbt2Config, *, device="cuda"):
     """DVB-T2 counterpart of ``batched_dvbt_modulator``: ``fn(ts_frames
     uint8 [B, payload_bytes], prev_tail uint8 [187] or None, start_idx)``
-    → IQ complex64 [B, samples_per_frame], the frames in one pass of the
-    chain (bench.py's 4-frame launch is B = 4)."""
+    → IQ complex64 [B, samples_per_frame], ``modulate_dvbt2_blocks`` as
+    one captured CUDA graph per batch size (bench.py's 4-frame launch is
+    B = 4)."""
     dev = resolve_device(device)
+    call = _jit_blocks(modulate_dvbt2_blocks, cfg, dev)
 
     def run(ts_frames: torch.Tensor, prev_tail: torch.Tensor | None,
-            start_idx: int) -> torch.Tensor:
-        B = _check_blocks(ts_frames, cfg.payload_bytes_per_frame, dev)
-        state = _dvbt2_state(cfg, prev_tail, start_idx, dev)
-        iq, _ = txt2.modulate_frame(cfg, ts_frames.reshape(-1), state)
-        return iq.reshape(B, -1)
+            start_idx: int | torch.Tensor) -> torch.Tensor:
+        _check_blocks(ts_frames, cfg.payload_bytes_per_frame, dev)
+        return call(ts_frames, _tail(prev_tail, T2_HALO_BYTES, dev),
+                    block_index(start_idx, dev))
 
     return run
 
@@ -234,8 +315,9 @@ def sharded_dvbt2_modulator(cfg: Dvbt2Config, group=None):
         dev = local_frames.device
         _check_backend(group, dev)
         prev = _gather_prev(local_frames[-1, -T2_HALO_BYTES:], group)
-        return _batched_dvbt2_modulator(cfg, device=dev)(
-            local_frames, prev, dist.get_rank(group) * L)
+        return modulate_dvbt2_blocks(
+            cfg, local_frames, _tail(prev, T2_HALO_BYTES, dev),
+            block_index(dist.get_rank(group) * L, dev))
 
     return run
 

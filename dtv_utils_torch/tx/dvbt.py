@@ -47,6 +47,7 @@ from dtv_utils_torch.ops.interleave import (forney_carry_len,
 from dtv_utils_torch.ops.rs import DVBT_RS
 from dtv_utils_torch.tx import dvbt_tables as T
 from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.graph import Jit
 
 OUTPUT_SCALE = 0.0022097087      # the reference's output scale, every mode
 OUTER_I, OUTER_M = 12, 17        # Forney outer interleaver
@@ -348,12 +349,27 @@ def modulate_superframe(cfg: DvbtConfig, ts: torch.Tensor,
     return carriers_to_iq(cfg, carriers), new_state
 
 
+@functools.cache
+def _jit_modulator(cfg: DvbtConfig, device: torch.device) -> Jit:
+    return Jit(functools.partial(modulate_superframe, cfg), device=device)
+
+
+def jit_modulator(cfg: DvbtConfig, *, device: str | torch.device = "cuda"
+                  ) -> Jit:
+    """``fn(ts, state) -> (iq, state)``: ``modulate_superframe`` as one
+    captured CUDA graph per input length on ``device`` (``utils/graph``;
+    eager through the same static buffers on the CPU), the counterpart of
+    the reference's ``jit_modulator``.  The results are the caller's."""
+    return _jit_modulator(cfg, resolve_device(device))
+
+
 def modulate_stream(cfg: DvbtConfig, ts: np.ndarray,
                     state: DvbtState | None = None, *,
                     device: str | torch.device
                     ) -> tuple[np.ndarray, DvbtState]:
-    """Modulate whole superframes of host TS bytes on ``device``; returns
-    host complex64 IQ and the final state (on ``device``)."""
+    """Modulate whole superframes of host TS bytes on ``device``, one
+    ``jit_modulator`` call each; returns host complex64 IQ and the final
+    state (on ``device``)."""
     dev = resolve_device(device)
     blk = cfg.ts_bytes_per_superframe
     if len(ts) % blk:
@@ -364,9 +380,9 @@ def modulate_stream(cfg: DvbtConfig, ts: np.ndarray,
         raise ValueError(f"state lives on {state.outer_carry.device}, "
                          f"not on {dev}")
     host = torch.from_numpy(np.ascontiguousarray(ts, dtype=np.uint8))
+    fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = modulate_superframe(
-            cfg, host[i * blk:(i + 1) * blk].to(dev), state)
+        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
         out.append(iq.cpu().numpy())
     return (np.concatenate(out) if out else np.empty(0, np.complex64)), state

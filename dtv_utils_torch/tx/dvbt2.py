@@ -43,6 +43,7 @@ from dtv_utils_torch.ops import cfft
 from dtv_utils_torch.tx import dvbt2_tables as T
 from dtv_utils_torch.tx import t2_p1
 from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.graph import Jit
 
 # DVB CRC-8 (EN 302 755 §5.1.4): x^8+x^7+x^6+x^4+x^2+1
 _CRC8_POLY = np.array([1, 0, 1, 0, 1, 0, 1, 1, 1], dtype=np.uint8)
@@ -657,12 +658,29 @@ def modulate_frame(cfg: Dvbt2Config, ts: torch.Tensor, state: Dvbt2State
     return grid_to_iq(cfg, grid), state
 
 
+@functools.cache
+def _jit_modulator(cfg: Dvbt2Config, device: torch.device) -> Jit:
+    return Jit(functools.partial(modulate_frame, cfg), device=device)
+
+
+def jit_modulator(cfg: Dvbt2Config, *, device: str | torch.device = "cuda"
+                  ) -> Jit:
+    """``fn(ts, state) -> (iq, state)``: ``modulate_frame`` as one captured
+    CUDA graph per input length on ``device`` (tone reservation's three
+    passes inside it with ``papr_tr``; ``utils/graph``; eager through the
+    same static buffers on the CPU), the counterpart of the reference's
+    ``jit_modulator``.  The results are the caller's: the new
+    ``prev_tail``, a view of the input in ``modulate_frame``, is a copy."""
+    return _jit_modulator(cfg, resolve_device(device))
+
+
 def modulate_stream(cfg: Dvbt2Config, ts: np.ndarray,
                     state: Dvbt2State | None = None, *,
                     device: str | torch.device
                     ) -> tuple[np.ndarray, Dvbt2State]:
-    """Modulate whole T2 frames of host TS bytes on ``device``; returns
-    host complex64 IQ and the final state (on ``device``)."""
+    """Modulate whole T2 frames of host TS bytes on ``device``, one
+    ``jit_modulator`` call each; returns host complex64 IQ and the final
+    state (on ``device``)."""
     dev = resolve_device(device)
     blk = cfg.payload_bytes_per_frame
     if len(ts) % blk:
@@ -673,10 +691,10 @@ def modulate_stream(cfg: Dvbt2Config, ts: np.ndarray,
         raise ValueError(f"state lives on {state.prev_tail.device}, "
                          f"not on {dev}")
     host = torch.from_numpy(np.ascontiguousarray(ts, dtype=np.uint8))
+    fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = modulate_frame(cfg, host[i * blk:(i + 1) * blk].to(dev),
-                                   state)
+        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
         out.append(iq.cpu().numpy())
     return (np.concatenate(out) if out else np.empty(0, np.complex64)), state
 

@@ -38,6 +38,7 @@ from dtv_utils_torch.core.galois import GF128, gf2_matmul, gf2_poly_mod_matrix
 from dtv_utils_torch.ops.fir import HIST, polyphase_interp2_split
 from dtv_utils_torch.ops.rs import RsBitEncoder
 from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.graph import Jit
 
 # ---------------------------------------------------------------------------
 # Frame constants (64-QAM mode)
@@ -438,11 +439,27 @@ def modulate_superblock(cfg: J83bConfig, ts: torch.Tensor,
                          rrc_tail=rrc_tail)
 
 
+@functools.cache
+def _jit_modulator(cfg: J83bConfig, device: torch.device) -> Jit:
+    return Jit(functools.partial(modulate_superblock, cfg), device=device)
+
+
+def jit_modulator(cfg: J83bConfig, *, device: str | torch.device = "cuda"
+                  ) -> Jit:
+    """``fn(ts, state) -> (iq, state)``: ``modulate_superblock`` as one
+    captured CUDA graph per input length on ``device``, the FIR kernel
+    launched inside it (``utils/graph``; eager through the same static
+    buffers on the CPU), the counterpart of the reference's
+    ``jit_modulator``.  The results are the caller's."""
+    return _jit_modulator(cfg, resolve_device(device))
+
+
 def modulate_stream(cfg: J83bConfig, ts: np.ndarray,
                     state: J83bState | None = None, *,
                     device: str | torch.device):
-    """Modulate whole superblocks of host TS bytes on ``device``; returns
-    host complex64 IQ and the final state (on ``device``)."""
+    """Modulate whole superblocks of host TS bytes on ``device``, one
+    ``jit_modulator`` call each; returns host complex64 IQ and the final
+    state (on ``device``)."""
     dev = resolve_device(device)
     blk = SUPERBLOCK_BYTES
     if len(ts) % blk:
@@ -453,9 +470,9 @@ def modulate_stream(cfg: J83bConfig, ts: np.ndarray,
         raise ValueError(f"state lives on {state.ilv_carry.device}, "
                          f"not on {dev}")
     host = torch.from_numpy(np.ascontiguousarray(ts, dtype=np.uint8))
+    fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = modulate_superblock(
-            cfg, host[i * blk:(i + 1) * blk].to(dev), state)
+        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
         out.append(cplx.rails_to_np(iq))
     return (np.concatenate(out) if out else np.empty(0, np.complex64)), state

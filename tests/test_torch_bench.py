@@ -172,19 +172,19 @@ def test_papr_chunks_are_distinct_and_seeded(monkeypatch):
 # End to end on the CPU
 # ---------------------------------------------------------------------------
 
-def _spy(monkeypatch, module, attr, calls):
-    real = getattr(module, attr)
-
-    def spy(*args):
-        out = real(*args)
-        calls.append((args, out))
-        return out
-    monkeypatch.setattr(module, attr, spy)
-
-
 def test_bench_dvbt_cpu_matches_jax(monkeypatch):
     calls, m = [], _CollectMetrics()
-    _spy(monkeypatch, txd, "modulate_superframe", calls)
+    real = txd.jit_modulator
+
+    def factory(cfg, *, device):
+        fn = real(cfg, device=device)
+
+        def spy(ts, state):
+            out = fn(ts, state)
+            calls.append(((cfg, ts, state), out))
+            return out
+        return spy
+    monkeypatch.setattr(txd, "jit_modulator", factory)
     bench.bench_dvbt(m, time.perf_counter() - 1, device="cpu",
                      cfg=DVBT_SMALL)
     assert len(calls) == bench.N_STREAMS * (1 + 4)   # warm-up + 1 segment

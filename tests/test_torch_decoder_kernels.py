@@ -29,6 +29,7 @@ from dtv_utils_tpu.ops import ldpc_decode as JLD
 from dtv_utils_tpu.ops import viterbi as JV
 from dtv_utils_tpu.tx import dvbt2 as JTX
 from dtv_utils_torch.core import config as TC
+from dtv_utils_torch.ops import _build
 from dtv_utils_torch.ops import convcode as tconv
 from dtv_utils_torch.ops import ldpc_decode as TLD
 from dtv_utils_torch.ops import viterbi as TV
@@ -127,10 +128,10 @@ def test_wrappers_take_plain_version_on_cpu(k):
     """On CPU tensors _acs and _traceback are the plain versions, equal to
     the reference's scans, and launch nothing."""
     pairs = _blocked_pairs(k, 257, 3, 0.5, seed=20 + k)
-    before = dict(TV.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     packed, final = TV._acs(torch.from_numpy(pairs), *CODES[k])
     bits = TV._traceback(packed, final, k)
-    assert TV.LAUNCHES == before
+    assert _build.LAUNCHES == before
     jdecs, jfinal = JV._acs_scan(jnp.asarray(pairs), *CODES[k])
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jdecs))
     np.testing.assert_array_equal(
@@ -682,10 +683,10 @@ def test_ldpc_wrappers_take_plain_version_on_cpu():
     plain version's new tensors."""
     llr, _ = _awgn_llrs(6, 2)
     cfg = _cfg(TC)
-    before = dict(TLD.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     hard, ok = TLD.decode(cfg, torch.from_numpy(llr), iterations=5)
     want_h, want_ok, first = _plain_decode(cfg, llr, 5)
-    assert TLD.LAUNCHES == before
+    assert _build.LAUNCHES == before
     np.testing.assert_array_equal(hard.numpy(), want_h)
     np.testing.assert_array_equal(ok.numpy(), want_ok)
     dg, llr_s, totals, state = TLD._start(cfg, torch.from_numpy(llr))
@@ -693,7 +694,7 @@ def test_ldpc_wrappers_take_plain_version_on_cpu():
     out = TLD._check_update(dg, totals, state)
     assert all(o is not s for o, s in zip(out, state))
     assert torch.equal(TLD.expand_c2v(dg, out), first)
-    assert TLD.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_ldpc_wrappers_reject():

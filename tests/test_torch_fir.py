@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from dtv_utils_torch.core.config import J83bConfig
-from dtv_utils_torch.ops import fir
+from dtv_utils_torch.ops import _build, fir
 from dtv_utils_torch.tx import j83b as T
 
 TAPS = T.rrc_taps(J83bConfig())
@@ -143,12 +143,12 @@ def test_library_name_follows_the_sources():
 
 
 def test_cpu_tensor_leaves_launches_at_zero(monkeypatch):
-    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "fir_interp2", 0)
     x = torch.from_numpy(_ext(300, seed=5))
     out = fir.polyphase_interp2(x, TAPS, 300)
     torch.testing.assert_close(out, fir.interp2_reference(x, TAPS, 300),
                                rtol=0, atol=0)
-    assert fir.LAUNCHES == 0
+    assert _build.LAUNCHES["fir_interp2"] == 0
 
 
 def test_phase_taps_layout():
@@ -165,12 +165,12 @@ def test_kernel_matches_plain_on_cuda(n, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "fir_interp2", 0)
     x = torch.from_numpy(_ext(n, seed=6)).cuda()
     got = fir.polyphase_interp2(x, TAPS, n)
     want = fir.interp2_reference(x, TAPS, n)
     torch.testing.assert_close(got, want, **TOL)
-    assert fir.LAUNCHES == 1
+    assert _build.LAUNCHES["fir_interp2"] == 1
 
 
 @pytest.mark.parametrize("n", [1, 48, 49, 300, 40_000])
@@ -274,7 +274,7 @@ def test_split_kernel_on_misaligned_rows(n, off, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "fir_interp2", 0)
     width = (n + off + 3) // 4 * 4        # row stride: a multiple of 4 floats
     rng = np.random.default_rng(n + off)
     buf = torch.from_numpy(
@@ -284,4 +284,4 @@ def test_split_kernel_on_misaligned_rows(n, off, monkeypatch):
     got = fir.polyphase_interp2_split(tail, cells, TAPS)
     want = fir.interp2_reference(torch.cat([tail, cells], dim=1), TAPS, n)
     torch.testing.assert_close(got, want, **TOL)
-    assert fir.LAUNCHES == 1
+    assert _build.LAUNCHES["fir_interp2"] == 1

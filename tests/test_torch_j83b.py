@@ -28,7 +28,7 @@ import torch
 from dtv_utils_tpu.core.config import J83bConfig as JConfig
 from dtv_utils_tpu.tx import j83b as J
 from dtv_utils_torch.core.config import J83bConfig
-from dtv_utils_torch.ops import fir
+from dtv_utils_torch.ops import _build
 from dtv_utils_torch.tx import j83b as T
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -306,7 +306,7 @@ def test_golden_matches_reference():
 def test_chip_smoke_checks_pass_on_cpu(monkeypatch):
     """chip_smoke.py's own checks, run on the CPU with the plain FIR: they
     accept the port's output, and the CPU path launches no kernel."""
-    monkeypatch.setattr(fir, "LAUNCHES", 0)
+    monkeypatch.setitem(_build.LAUNCHES, "fir_interp2", 0)
     golden = json.loads(GOLDEN.read_text())
     dev = torch.device("cpu")
     assert smoke.check_fir(dev, T.rrc_taps(J83bConfig())) == 0.0
