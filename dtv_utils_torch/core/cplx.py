@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dtv_utils_torch.utils.trace import span
+
 
 def rails_to_np(x: torch.Tensor) -> np.ndarray:
     """Rail-major float32 tensor [2, ...] on any device → host complex64 [...]."""
@@ -27,6 +29,7 @@ def rails_from_np(c: np.ndarray, *, device: torch.device | str) -> torch.Tensor:
     return torch.from_numpy(np.stack([c.real, c.imag])).to(device)
 
 
+@span("dtv.stream.copy_in")
 def iq_to_device(iq: np.ndarray | torch.Tensor, *,
                  device: torch.device | str) -> torch.Tensor:
     """complex64 IQ, a NumPy array or a tensor, → flat complex64 tensor on

@@ -62,7 +62,7 @@ route and no fallback.  ``_build.LAUNCHES`` counts the kernels'
 launches.
 
 Fixed iteration count, no early exit, and no host sync: the 30 iterations
-run inside a ``torch.profiler`` range named ``ldpc_minsum``.
+run inside a span (``utils/trace.span``) named ``ldpc_minsum``.
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ from dtv_utils_torch.ops import _build
 from dtv_utils_torch.tx import dvbt2_tables as T
 from dtv_utils_torch.utils.device import resolve_device
 from dtv_utils_torch.utils.graph import Jit
+from dtv_utils_torch.utils.trace import span
 
 MINSUM_SCALE = 0.75          # normalized min-sum correction factor
 _BIG = 1e30                  # the reference's "no second minimum"
@@ -370,7 +371,7 @@ def decode(cfg: Dvbt2Config, llr: torch.Tensor, iterations: int = 30
     (hard bits uint8 [batch, nldpc], ok bool [batch]), on the device of
     ``llr``."""
     dg, llr_s, totals, state = _start(cfg, llr)
-    with torch.profiler.record_function("ldpc_minsum"):
+    with span("ldpc_minsum"):
         for _ in range(iterations):
             _variable_totals(dg, llr_s, state, totals)
             state = _check_update(dg, totals, state)

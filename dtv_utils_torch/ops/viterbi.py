@@ -21,10 +21,10 @@ launches the kernel, a CPU tensor takes the plain version
 (``acs_reference``, a Python loop over the steps on metrics ``[B, S]``
 whose bool decisions ``pack_decisions`` packs, and ``traceback_reference``,
 a reverse loop of three ops per step); there is no other route and no
-fallback.  The launches and the plain loops run inside ``torch.profiler``
-ranges named ``viterbi_acs`` and ``viterbi_traceback``, so a trace can
-attribute their device time; ``_build.LAUNCHES`` counts the kernels'
-launches.
+fallback.  The launches and the plain loops run inside spans
+(``utils/trace.span``) named ``viterbi_acs`` and ``viterbi_traceback``,
+so a trace can attribute their device time; ``_build.LAUNCHES`` counts
+the kernels' launches.
 
 The arithmetic is the reference's, operation for operation, in the kernels
 and the plain versions alike, so decisions match it bit for bit on
@@ -52,6 +52,7 @@ from dtv_utils_torch.ops.convcode import PUNCTURE_PATTERNS
 from dtv_utils_torch.utils.device import (VITERBI_BYTES_PER_STEP,
                                           VITERBI_PLAIN_BYTES_PER_STEP,
                                           units_per_pass)
+from dtv_utils_torch.utils.trace import span
 
 # DVB-T mother code (EN 300 744 §4.3.3)
 DVBT_K, DVBT_G1, DVBT_G2 = 7, 0o171, 0o133
@@ -172,7 +173,7 @@ def acs_reference(pairs: torch.Tensor, k: int, g1: int,
                        device=pairs.device)
     metrics = torch.zeros((B, 1, half, 2), dtype=torch.float32,
                           device=pairs.device)
-    with torch.profiler.record_function("viterbi_acs"):
+    with span("viterbi_acs"):
         for t in range(L):
             bm = bm4[t].index_select(1, code).view(B, 2, half, 2)
             cand = metrics + bm                               # [B, 2, half, 2]
@@ -208,7 +209,7 @@ def traceback_reference(packed: torch.Tensor, final: torch.Tensor,
                          device=packed.device)
     # torch.argmax returns the first maximal index, as jnp.argmax does
     states[L] = final.argmax(-1, keepdim=True)
-    with torch.profiler.record_function("viterbi_traceback"):
+    with span("viterbi_traceback"):
         for t in range(L - 1, -1, -1):
             a = torch.gather(decs[t], 1, states[t + 1])        # bool [B, 1]
             torch.bitwise_and(torch.add(a, states[t + 1], alpha=2), S - 1,
@@ -248,7 +249,7 @@ def _acs(pairs: torch.Tensor, k: int, g1: int,
     packed = torch.empty((L, B, S // 8), dtype=torch.uint8,
                          device=pairs.device)
     final = torch.empty((B, S), dtype=torch.float32, device=pairs.device)
-    with torch.profiler.record_function("viterbi_acs"):
+    with span("viterbi_acs"):
         _build.launch("viterbi_acs", pairs.device, k,
                       pairs.data_ptr(), L, B, g1, g2, packed.data_ptr(),
                       final.data_ptr())
@@ -280,7 +281,7 @@ def _traceback(packed: torch.Tensor, final: torch.Tensor,
         return traceback_reference(packed, final, k)
     L, B, _ = packed.shape
     bits = torch.empty((L, B), dtype=torch.uint8, device=packed.device)
-    with torch.profiler.record_function("viterbi_traceback"):
+    with span("viterbi_traceback"):
         _build.launch("viterbi_traceback", packed.device, k,
                       packed.data_ptr(), final.data_ptr(), L, B,
                       bits.data_ptr())

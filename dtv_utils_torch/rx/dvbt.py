@@ -38,6 +38,7 @@ from dtv_utils_torch.tx.dvbt import OUTER_I, OUTER_M, OUTPUT_SCALE, _plan
 from dtv_utils_torch.utils.device import (FRONT_BYTES_PER_SAMPLE,
                                           RS_BYTES_PER_PACKET,
                                           resolve_device, units_per_pass)
+from dtv_utils_torch.utils.trace import span, wait
 
 PKT, CODED_PKT = 188, 204
 
@@ -272,6 +273,7 @@ def _forney_deinterleave_index(n_pkts: int,
     return torch.from_numpy(j + CODED_PKT * (j % OUTER_I)).to(device)
 
 
+@span("dtv.rx.rs_decode")
 def decode_outer(outer: torch.Tensor):
     """Outer-interleaved bytes → (RS-corrected packets uint8 [n_pkts, 188],
     corrected byte counts int32, ok bool).  The Forney deinterleaver keeps
@@ -292,6 +294,7 @@ def decode_outer(outer: torch.Tensor):
     return tuple(_joined(list(c)) for c in zip(*parts))
 
 
+@span("dtv.rx.front_end")
 def _front_end(cfg: DvbtConfig, iq: torch.Tensor):
     """Whole superframes of IQ → (pilot phases int64 [n_sym], TPS votes
     float32 [n_sym], coded LLRs float32 [n_kept]): FFT, phase and TPS
@@ -301,6 +304,7 @@ def _front_end(cfg: DvbtConfig, iq: torch.Tensor):
             coded_llrs(cfg, _extract_cells(cfg, carriers)))
 
 
+@span("dtv.rx.dvbt")
 def demodulate_stream(cfg: DvbtConfig, iq, *,
                       device: str | torch.device) -> DvbtRxResult:
     """IQ (complex64 NumPy array or tensor, whole superframes) → recovered
@@ -337,21 +341,27 @@ def demodulate_stream(cfg: DvbtConfig, iq, *,
                 llr = z.new_empty(per_sf * n_sf)
             llr[a * per_sf:b * per_sf] = z
         del z
-    bits = viterbi_decode_punctured(llr, cfg.code_rate.value)
+    with span("dtv.rx.viterbi"):
+        bits = viterbi_decode_punctured(llr, cfg.code_rate.value)
     del llr
     pkts, n_err, ok = decode_outer(bitops.bits_to_bytes(bits))
     del bits
 
-    # energy de-dispersal (XOR is involutive; phase = packet index mod 8)
-    rows = _device_rx_plan(cfg, dev)["dispersal"]
-    ts = pkts ^ rows[torch.arange(pkts.shape[0], device=dev) % 8]
+    with span("dtv.rx.deframe"):
+        # energy de-dispersal (XOR is involutive; phase = packet index mod 8)
+        rows = _device_rx_plan(cfg, dev)["dispersal"]
+        ts = pkts ^ rows[torch.arange(pkts.shape[0], device=dev) % 8]
+    phases, votes = _joined(phases), _joined(votes)
 
-    phase_np = _joined(phases).cpu().numpy()
-    return DvbtRxResult(
-        ts=ts.reshape(-1).cpu().numpy(),
-        rs_errors=n_err.cpu().numpy(),
-        rs_ok=ok.cpu().numpy(),
-        phase_ok=bool(np.array_equal(phase_np,
-                                     np.arange(len(phase_np)) % 4)),
-        tps=_tps_fields(_joined(votes).cpu().numpy()),
-    )
+    wait(dev)
+    with span("dtv.stream.copy_out"):
+        ts, n_err, ok, phases, votes = (
+            t.cpu().numpy()
+            for t in (ts.reshape(-1), n_err, ok, phases, votes))
+    with span("dtv.stream.host"):
+        return DvbtRxResult(
+            ts=ts, rs_errors=n_err, rs_ok=ok,
+            phase_ok=bool(np.array_equal(phases,
+                                         np.arange(len(phases)) % 4)),
+            tps=_tps_fields(votes),
+        )

@@ -37,6 +37,7 @@ from dtv_utils_torch.ops.viterbi import (J83B_G1, J83B_G2, J83B_K,
                                          viterbi_decode)
 from dtv_utils_torch.tx import j83b as TX
 from dtv_utils_torch.utils.device import resolve_device
+from dtv_utils_torch.utils.trace import span, wait
 
 SUPERBLOCK_SAMPLES = 2 * TX.SUPERBLOCK_SYMBOLS
 
@@ -100,6 +101,7 @@ def _full_fp32_convolutions():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@span("dtv.rx.front_end")
 def front(cfg: J83bConfig, iq: torch.Tensor) -> torch.Tensor:
     """IQ complex64 [n] (n even) → 6-bit words int32 [n/2]: the matched
     filter y[i] = Σ_j taps[j]·x[i+j] read at y[2m + off] (a stride-2
@@ -142,8 +144,9 @@ def trellis_decode(words: torch.Tensor) -> torch.Tensor:
     z = w ^ (q_in & 1).to(torch.uint8)
     llr = 1.0 - 2.0 * torch.stack([ca, cb]).to(torch.float32)
     pairs = depuncture_xy(llr, TX.PUNCT_X, TX.PUNCT_Y)       # [2, n_step, 2]
-    dec = viterbi_decode(pairs, block=4096, k=J83B_K, g1=J83B_G1,
-                         g2=J83B_G2, overlap=seam_overlap(J83B_K, 4, 5))
+    with span("dtv.rx.viterbi"):
+        dec = viterbi_decode(pairs, block=4096, k=J83B_K, g1=J83B_G1,
+                             g2=J83B_G2, overlap=seam_overlap(J83B_K, 4, 5))
     n_grp = words.shape[0] // 5
     ca_in, cb_in = dec.reshape(2, n_grp, 4)
     # substream reassembly (inverse of the tx trellis_encode group layout)
@@ -172,6 +175,7 @@ def _deinterleave_index(n_cw: int, device: torch.device) -> torch.Tensor:
         device)
 
 
+@span("dtv.rx.j83b")
 def demodulate_stream(cfg: J83bConfig, iq, *,
                       device: str | torch.device) -> J83bRxResult:
     """IQ (complex64 NumPy array or tensor, whole superblocks) → recovered
@@ -185,41 +189,54 @@ def demodulate_stream(cfg: J83bConfig, iq, *,
     n_fr = n_sb * TX.FRAMES_PER_SUPERBLOCK
     fb = trellis_decode(front(cfg, x)).reshape(n_fr, TX.FRAME_BITS)
 
-    # FSYNC check + strip.  The stream's final ~2 trellis groups have no
-    # continuation evidence, so the last frame's trailer (the last 42 bits)
-    # is left out of the check, as a streaming receiver never sees it.
-    pay_bits = TX.FRAME_SYMBOLS * 7
-    sync = fb[:, pay_bits:]
-    want = TX._device_table("fsync", dev)[0]
-    fsync_ok = (sync[:-1] == want).all()
-    control_word = bitops.bits_to_words(sync[0, -4:], 4)[0]
+    with span("dtv.rx.deframe"):
+        # FSYNC check + strip.  The stream's final ~2 trellis groups have
+        # no continuation evidence, so the last frame's trailer (the last
+        # 42 bits) is left out of the check, as a streaming receiver never
+        # sees it.
+        pay_bits = TX.FRAME_SYMBOLS * 7
+        sync = fb[:, pay_bits:]
+        want = TX._device_table("fsync", dev)[0]
+        fsync_ok = (sync[:-1] == want).all()
+        control_word = bitops.bits_to_words(sync[0, -4:], 4)[0]
 
-    # derandomize + de-interleave
-    syms = bitops.bits_to_words(fb[:, :pay_bits], 7)          # [n_fr, 7680]
-    rnd = TX._device_table("randomizer", dev)
-    inter = (syms.reshape(n_sb, -1) ^ rnd).reshape(-1)
-    max_shift = TX.ILV_I * TX.ILV_J * (TX.ILV_I - 1)
-    # tail guard: the final 2 trellis groups' bits (ceil(56/7) = 8 symbols)
-    # lie in the Viterbi erasure tail, not yet received in stream terms
-    n_cw = max((inter.shape[0] - max_shift - 8) // TX.RS_N, 0)
-    cw = inter[_deinterleave_index(n_cw, dev)].reshape(n_cw, TX.RS_N)
+        # derandomize + de-interleave
+        syms = bitops.bits_to_words(fb[:, :pay_bits], 7)      # [n_fr, 7680]
+        rnd = TX._device_table("randomizer", dev)
+        inter = (syms.reshape(n_sb, -1) ^ rnd).reshape(-1)
+        max_shift = TX.ILV_I * TX.ILV_J * (TX.ILV_I - 1)
+        # tail guard: the final 2 trellis groups' bits (ceil(56/7) = 8
+        # symbols) lie in the Viterbi erasure tail, not yet received in
+        # stream terms
+        n_cw = max((inter.shape[0] - max_shift - 8) // TX.RS_N, 0)
+        cw = inter[_deinterleave_index(n_cw, dev)].reshape(n_cw, TX.RS_N)
 
-    # RS: correct up to t=2 on the (127,122) body, check the extension
-    corrected, n_err, ok = _rs_dec().decode_words(cw[:, :127])
-    ext_ok = xor_reduce(corrected) == cw[:, 127]
+    with span("dtv.rx.rs_decode"):
+        # RS: correct up to t=2 on the (127,122) body, check the extension
+        corrected, n_err, ok = _rs_dec().decode_words(cw[:, :127])
+        ext_ok = xor_reduce(corrected) == cw[:, 127]
 
-    # transport de-framing: 7-bit symbols → bytes → checksum verify
-    bits = bitops.words_to_bits(corrected[:, :TX.RS_K].reshape(-1), 7)
-    n_pkts = bits.shape[0] // 8 // 188
-    packed = bitops.bits_to_bytes(bits[:n_pkts * 188 * 8]).reshape(n_pkts, 188)
-    crc = bitops.bits_to_bytes(gf2_matmul(
-        bitops.bytes_to_bits(packed[:, 1:]), TX._device_table("crc", dev)))
-    checksum_ok = packed[:, 0] == crc[:, 0]
-    ts = packed.clone()
-    ts[:, 0] = 0x47
+    with span("dtv.rx.deframe"):
+        # transport de-framing: 7-bit symbols → bytes → checksum verify
+        bits = bitops.words_to_bits(corrected[:, :TX.RS_K].reshape(-1), 7)
+        n_pkts = bits.shape[0] // 8 // 188
+        packed = bitops.bits_to_bytes(bits[:n_pkts * 188 * 8]).reshape(
+            n_pkts, 188)
+        crc = bitops.bits_to_bytes(gf2_matmul(
+            bitops.bytes_to_bits(packed[:, 1:]),
+            TX._device_table("crc", dev)))
+        checksum_ok = packed[:, 0] == crc[:, 0]
+        ts = packed.clone()
+        ts[:, 0] = 0x47
 
-    return J83bRxResult(
-        ts=ts.reshape(-1).cpu().numpy(), fsync_ok=bool(fsync_ok),
-        control_word=int(control_word), rs_ok=ok.cpu().numpy(),
-        rs_errors=n_err.cpu().numpy(), ext_ok=ext_ok.cpu().numpy(),
-        checksum_ok=checksum_ok.cpu().numpy())
+    wait(dev)
+    with span("dtv.stream.copy_out"):
+        ts, fsync_ok, control_word, ok, n_err, ext_ok, checksum_ok = (
+            t.cpu() for t in (ts.reshape(-1), fsync_ok, control_word, ok,
+                              n_err, ext_ok, checksum_ok))
+    with span("dtv.stream.host"):
+        return J83bRxResult(
+            ts=ts.numpy(), fsync_ok=bool(fsync_ok),
+            control_word=int(control_word), rs_ok=ok.numpy(),
+            rs_errors=n_err.numpy(), ext_ok=ext_ok.numpy(),
+            checksum_ok=checksum_ok.numpy())

@@ -48,6 +48,7 @@ from dtv_utils_torch.ops.rs import DVBT_RS
 from dtv_utils_torch.tx import dvbt_tables as T
 from dtv_utils_torch.utils.device import resolve_device
 from dtv_utils_torch.utils.graph import Jit
+from dtv_utils_torch.utils.trace import span, wait
 
 OUTPUT_SCALE = 0.0022097087      # the reference's output scale, every mode
 OUTER_I, OUTER_M = 12, 17        # Forney outer interleaver
@@ -363,6 +364,7 @@ def jit_modulator(cfg: DvbtConfig, *, device: str | torch.device = "cuda"
     return _jit_modulator(cfg, resolve_device(device))
 
 
+@span("dtv.tx.stream")
 def modulate_stream(cfg: DvbtConfig, ts: np.ndarray,
                     state: DvbtState | None = None, *,
                     device: str | torch.device
@@ -383,6 +385,12 @@ def modulate_stream(cfg: DvbtConfig, ts: np.ndarray,
     fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
-        out.append(iq.cpu().numpy())
-    return (np.concatenate(out) if out else np.empty(0, np.complex64)), state
+        with span("dtv.stream.copy_in"):
+            block = host[i * blk:(i + 1) * blk].to(dev)
+        iq, state = fn(block, state)
+        wait(dev)
+        with span("dtv.stream.copy_out"):
+            out.append(iq.cpu().numpy())
+    with span("dtv.stream.host"):
+        out = np.concatenate(out) if out else np.empty(0, np.complex64)
+    return out, state

@@ -44,6 +44,7 @@ from dtv_utils_torch.tx import dvbt2_tables as T
 from dtv_utils_torch.tx import t2_p1
 from dtv_utils_torch.utils.device import resolve_device
 from dtv_utils_torch.utils.graph import Jit
+from dtv_utils_torch.utils.trace import span, wait
 
 # DVB CRC-8 (EN 302 755 §5.1.4): x^8+x^7+x^6+x^4+x^2+1
 _CRC8_POLY = np.array([1, 0, 1, 0, 1, 0, 1, 1, 1], dtype=np.uint8)
@@ -674,6 +675,7 @@ def jit_modulator(cfg: Dvbt2Config, *, device: str | torch.device = "cuda"
     return _jit_modulator(cfg, resolve_device(device))
 
 
+@span("dtv.tx.stream")
 def modulate_stream(cfg: Dvbt2Config, ts: np.ndarray,
                     state: Dvbt2State | None = None, *,
                     device: str | torch.device
@@ -694,9 +696,15 @@ def modulate_stream(cfg: Dvbt2Config, ts: np.ndarray,
     fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
-        out.append(iq.cpu().numpy())
-    return (np.concatenate(out) if out else np.empty(0, np.complex64)), state
+        with span("dtv.stream.copy_in"):
+            block = host[i * blk:(i + 1) * blk].to(dev)
+        iq, state = fn(block, state)
+        wait(dev)
+        with span("dtv.stream.copy_out"):
+            out.append(iq.cpu().numpy())
+    with span("dtv.stream.host"):
+        out = np.concatenate(out) if out else np.empty(0, np.complex64)
+    return out, state
 
 
 def samples_per_frame(cfg: Dvbt2Config) -> int:

@@ -39,6 +39,7 @@ from dtv_utils_torch.ops.fir import HIST, polyphase_interp2_split
 from dtv_utils_torch.ops.rs import RsBitEncoder
 from dtv_utils_torch.utils.device import resolve_device
 from dtv_utils_torch.utils.graph import Jit
+from dtv_utils_torch.utils.trace import span, wait
 
 # ---------------------------------------------------------------------------
 # Frame constants (64-QAM mode)
@@ -454,6 +455,7 @@ def jit_modulator(cfg: J83bConfig, *, device: str | torch.device = "cuda"
     return _jit_modulator(cfg, resolve_device(device))
 
 
+@span("dtv.tx.stream")
 def modulate_stream(cfg: J83bConfig, ts: np.ndarray,
                     state: J83bState | None = None, *,
                     device: str | torch.device):
@@ -473,6 +475,12 @@ def modulate_stream(cfg: J83bConfig, ts: np.ndarray,
     fn = jit_modulator(cfg, device=dev)
     out = []
     for i in range(len(ts) // blk):
-        iq, state = fn(host[i * blk:(i + 1) * blk].to(dev), state)
-        out.append(cplx.rails_to_np(iq))
-    return (np.concatenate(out) if out else np.empty(0, np.complex64)), state
+        with span("dtv.stream.copy_in"):
+            block = host[i * blk:(i + 1) * blk].to(dev)
+        iq, state = fn(block, state)
+        wait(dev)
+        with span("dtv.stream.copy_out"):
+            out.append(cplx.rails_to_np(iq))
+    with span("dtv.stream.host"):
+        out = np.concatenate(out) if out else np.empty(0, np.complex64)
+    return out, state

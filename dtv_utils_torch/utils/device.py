@@ -12,6 +12,8 @@ import subprocess
 
 import torch
 
+from dtv_utils_torch.utils.trace import span
+
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """Parse ``"cpu"``, ``"cuda"``, ``"cuda:N"`` or a ``torch.device``.
@@ -77,6 +79,7 @@ VITERBI_PLAIN_BYTES_PER_STEP = 140  # its plain version, per trellis step
 RS_BYTES_PER_PACKET = 72 << 10     # rx.dvbt.decode_outer, per TS packet
 
 
+@span("dtv.sizing")
 def working_bytes(device: torch.device) -> int:
     """Bytes a call may spend on temporaries that it can cut into passes.
 

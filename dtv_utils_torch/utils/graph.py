@@ -55,6 +55,12 @@ so the counters keep counting launches that ran on the card.
 TF32 (``torch.backends.cuda.matmul.allow_tf32``, ``cudnn.allow_tf32``) is
 baked into a graph at capture: it is part of :class:`Jit`'s key, and a
 :class:`StaticCall` refuses a call under another setting.
+
+Spans (``utils/trace``): a call is ``dtv.graph.call``, and its steps
+``dtv.graph.copy_in``, ``dtv.graph.replay`` (on the CPU, the eager run on
+the buffers) and ``dtv.graph.copy_out``; a first call on the card runs
+``dtv.graph.capture`` (warm-up, capture and the warm-up's copy-out) in
+place of the last two.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from dtv_utils_torch.ops import _build
+from dtv_utils_torch.utils.trace import span
 
 MAX_GRAPHS = 8
 """Captured calls kept per device (least recently used evicted first)."""
@@ -196,15 +203,22 @@ class StaticCall:
         self.launches: dict = {}
         self.capture_s = 0.0
 
+    @span("dtv.graph.call")
     def __call__(self, *args):
-        self._copy_in(args)
+        with span("dtv.graph.copy_in"):
+            self._copy_in(args)
         if self.device.type != "cuda":
-            return self._copy_out(self.fn(*self._args()))
-        if self.graph is None:
+            with span("dtv.graph.replay"):
+                result = self.fn(*self._args())
+        elif self.graph is None:
             return self._warm_up_and_capture()
-        self.graph.replay()
-        _add_launches(self.launches)
-        return self._copy_out(_unflatten(self.out_spec, iter(self.outputs)))
+        else:
+            with span("dtv.graph.replay"):
+                self.graph.replay()
+                _add_launches(self.launches)
+            result = _unflatten(self.out_spec, iter(self.outputs))
+        with span("dtv.graph.copy_out"):
+            return self._copy_out(result)
 
     def _args(self) -> tuple:
         return _unflatten(self.spec, iter(self.buffers))
@@ -234,6 +248,7 @@ class StaticCall:
         spec = _flatten(result, leaves)
         return _unflatten(spec, iter([t.clone() for t in leaves]))
 
+    @span("dtv.graph.capture")
     def _warm_up_and_capture(self):
         t0 = time.perf_counter()
         dev = self.device
