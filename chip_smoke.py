@@ -28,8 +28,12 @@ the JAX reference:
   at 23.0 dB and on pure noise, on blade's 31 coded blocks (a ragged
   slice) and on SHORT 5/6 noise (D = 42): the check state, the messages
   it rebuilds and the totals after the first and the 30th iteration, hard
-  bits, ``ok``; each timed cold and warm beside its bound and its plain
-  version, the BBC frame also at 32 and 64 codewords per slice;
+  bits, ``ok``; the RS kernel (``csrc/rs_decode.cu``) on the codewords
+  the DVB-T and J.83B receivers hand it (10,573 x 204 bytes and 22,051 x
+  127 words from the noisy captures) and on the same words with 0..2t+4
+  symbol errors each: corrected words, n_err and ok; each timed cold and
+  warm beside its bound and its plain version, the BBC frame also at 32
+  and 64 codewords per slice;
 * the DVB-T and J.83B receivers on the IQ above, clean and through AWGN at
   20.0 and 27 dB, with every kernel of the path launched (the counts set
   to 0 before each receiver's run and read after it): the exact input TS
@@ -37,7 +41,8 @@ the JAX reference:
   against the port's CPU stage by stage (Viterbi, J.83B front and trellis
   decode, RS for both fields), no host sync inside the decoders, and
   ``dvbt-rx`` / ``qam-rx`` against ``demodulate_stream``; one ACS pass
-  and RX_DVBT_ACTIVITIES device activities per flagship call, each
+  and RX_DVBT_ACTIVITIES device activities per flagship call (one RS
+  kernel launch in its ``rs_decode_kernel`` range), each
   passed stage's peak memory per unit within its size in
   ``utils/device.py``; 24 DVB-T superframes under a 12 GB memory cap,
   equal to the uncapped call;
@@ -163,7 +168,7 @@ RX_NOISE_SEED = 0x5EED                  # host default_rng for the AWGN
 RX_VITERBI_BLOCKS = 64                  # card-vs-CPU Viterbi cut, blocks
 RX_J83B_GROUPS = 50_000                 # card-vs-CPU J.83B cut, groups
 RX_SUPERFRAMES = (2, 8)                 # DVB-T receive calls timed
-RX_DVBT_ACTIVITIES = 823                # device activities, 2-superframe call
+RX_DVBT_ACTIVITIES = 51                 # device activities, 2-superframe call
 RX_REPEATS = 3
 RX_CAP_BYTES = 12e9                     # set_per_process_memory_fraction cap
 RX_CAP_SUPERFRAMES = (12, 24)           # DVB-T calls decoded under the cap
@@ -174,6 +179,7 @@ RX_LDPC_BLOCKS = 8                      # card-vs-CPU LDPC cut, FEC blocks
 DEC_TIMED = 6                           # decoder-kernel launches per timing
 DEC_SETS = 2                            # input sets rotated when cold
 DEC_NOISE_SEED = 0xDEC                  # the LDPC's pure-noise LLRs
+RS_ERROR_SEED = 0x125                   # the RS kernel's corrupted words
 LDPC_ES_N0_DB = 2.5                     # BPSK codewords the decoder corrects
 LDPC_ITERATIONS = 30                    # rx.dvbt2's soft decode
 SPIN_CYCLES_PER_MS = 2e6                # torch.cuda._sleep, ~2 GHz SM clock
@@ -1311,6 +1317,12 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
                                  "one launch")
     loop_n = sum(n for n, _ in got.values())
     loop_us = sum(us for _, us in got.values())
+    rs = _range_activities(events, acts, "rs_decode_kernel")
+    if len(rs) != 1:
+        raise AssertionError(f"dvbt rx: {len(rs)} device activities in "
+                             "rs_decode_kernel, not the kernel's one launch")
+    print(f"dvbt rx profile: RS kernel {rs[0]['dur'] / 1e3:.4f} ms of device "
+          f"time in its one launch, on {card}")
     print(f"dvbt rx profile (1 call, 2 superframes): {len(acts)} device "
           f"activities, busy {busy_ms:.3f} ms = {busy_ms / 1e3 / call_s:.3f} "
           f"of the unprofiled call's {call_s:.4f} s; Viterbi kernels "
@@ -1325,7 +1337,7 @@ def profile_dvbt_rx(dev, card: str, iq: np.ndarray, call_s: float) -> dict:
         print(f"  {self_us / 1e3:9.3f} ms {100 * self_us / total_us:5.1f} % "
               f"{count:6d} calls  {key[:60]}")
     return dict(busy_ms=busy_ms, activities=len(acts), loop_share=loop_us
-                / total_us)
+                / total_us, rs_ms=rs[0]["dur"] / 1e3)
 
 
 def _expect_t2(label: str, res, ts: np.ndarray, cfg,
@@ -1708,6 +1720,89 @@ def check_viterbi_kernels(label: str, args: tuple, card: str,
     return out
 
 
+def rs_bounds(batch: int, n: int, nroots: int, in_bytes: int,
+              out_bytes: int, lookups_per_s: float) -> tuple[float, str]:
+    """Least ms for the RS kernel: codewords read once and corrected
+    words, n_err (int32) and ok (bool) written once; and a clean
+    codeword's shared-memory table lookups (a log per symbol, an exp per
+    symbol and root), which every codeword needs, at ``lookups_per_s``."""
+    return _bound(batch * (n * (in_bytes + out_bytes) + 5),
+                  batch * n * (nroots + 1), lookups_per_s)
+
+
+def _captured_rs(fn) -> list[tuple]:
+    """Run ``fn()`` and return (decoder, codewords, out dtype) of each of
+    its calls to ``ops.rs_decode.RsDecoder._decode``: what the main path
+    gives the RS kernel."""
+    from dtv_utils_torch.ops import rs_decode
+
+    seen, decode = [], rs_decode.RsDecoder._decode
+
+    def keep(self, cw, out_dtype):
+        seen.append((self, cw, out_dtype))
+        return decode(self, cw, out_dtype)
+
+    with _patched(rs_decode.RsDecoder, "_decode", keep):
+        fn()
+    return seen
+
+
+def rs_args(dev, dvbt_iq: np.ndarray, j83b_iq: np.ndarray) -> dict:
+    """The (decoder, codewords, out dtype) the receivers hand the RS
+    kernel, by case, with a label: the flagship's 2 superframes at
+    RX_DVBT_SNR_DB and J.83B's 2 superblocks at RX_J83B_SNR_DB."""
+    from dtv_utils_torch.core.config import J83bConfig
+    from dtv_utils_torch.rx import dvbt as rxd
+    from dtv_utils_torch.rx import j83b as rxq
+
+    noisy = awgn(dvbt_iq, RX_DVBT_SNR_DB, RX_NOISE_SEED)
+    (dvbt,) = _captured_rs(
+        lambda: rxd.demodulate_stream(dvbt_flagship(), noisy, device=dev))
+    jnoisy = awgn(j83b_iq, RX_J83B_SNR_DB, RX_NOISE_SEED)
+    (j83b,) = _captured_rs(
+        lambda: rxq.demodulate_stream(J83bConfig(), jnoisy, device=dev))
+    return {"dvbt": ("dvbt flagship 2 superframes", dvbt),
+            "j83b": ("j83b 2 superblocks", j83b)}
+
+
+def check_rs_kernel(label: str, args: tuple, card: str,
+                    instr_per_s: float) -> dict:
+    """The RS kernel against its plain version on the card, on the
+    codewords a receiver hands it and on the same words with 0..2t+4
+    symbol errors each: corrected words, n_err and ok bit for bit; then
+    its time beside its bound (lookups at 32 per SM and clock, a quarter
+    of ``instr_per_s``)."""
+    dec, cw, out_dtype = args
+    batch = cw.shape[0]
+    rng = np.random.default_rng(RS_ERROR_SEED)
+    n_errs = np.arange(batch) % (2 * dec.t + 5)
+    hit = rng.random((batch, dec.n)).argsort(1) < n_errs[:, None]
+    flips = np.where(hit, rng.integers(1, dec.gf.q, hit.shape), 0)
+    bad = cw ^ torch.from_numpy(flips).to(cw.device, cw.dtype)
+    for case, words in (("served", cw), ("corrupted", bad)):
+        got = dec._decode(words, out_dtype)
+        c, n_err, ok = dec.decode_reference(words)
+        want = (c.to(out_dtype), n_err, ok)
+        for g, w, name in zip(got, want, ("corrected", "n_err", "ok")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"RS kernel ({label}, {case}): {name} "
+                                     "differs from the plain version")
+        print(f"RS kernel ({label}, {case}, [{batch}, {dec.n}] "
+              f"{str(cw.dtype)[6:]} -> {str(out_dtype)[6:]}): corrected "
+              f"words, n_err and ok equal the plain version's on the card; "
+              f"{int(n_err.sum())} symbols corrected, "
+              f"{int((~ok).sum())} words flagged")
+    sets = [cw] + [cw.clone() for _ in range(DEC_SETS - 1)]
+    t = _timed([functools.partial(dec._decode, w, out_dtype) for w in sets],
+               lambda: dec.decode_reference(cw))
+    bound = rs_bounds(batch, dec.n, dec.nroots, cw.element_size(),
+                      torch.empty((), dtype=out_dtype).element_size(),
+                      instr_per_s / 4)
+    _report("rs_decode", label, t, bound, card)
+    return dict(t, bound=bound, max_abs_err=0.0,
+                shape=dict(batch=batch, n=dec.n, nroots=dec.nroots))
+
+
 def check_ldpc_kernels(label: str, cfg, llr: torch.Tensor,
                        card: str) -> dict:
     """The check and variable kernels against their plain versions on the
@@ -1880,7 +1975,8 @@ def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
     min-sum kernels on one BBC frame's 202 soft blocks at RX_DVBT2_SNR_DB
     (also timed at 32 and 64 codewords per slice) and on pure noise, on
     blade's 31 coded blocks (a ragged slice) and on pure noise of the
-    SHORT 5/6 code (D = 42).  Returns the timings by kernel and case."""
+    SHORT 5/6 code (D = 42); the RS kernel on the codewords both receivers
+    hand it.  Returns the timings by kernel and case."""
     from dtv_utils_torch.core.config import T2CodeRate, T2FrameSize
     from dtv_utils_torch.models.dvbt2 import PROFILES
     from dtv_utils_torch.rx import dvbt2 as rx2
@@ -1889,6 +1985,9 @@ def check_decoder_kernels(dev, card: str, dvbt_iq: np.ndarray,
     res = {case: check_viterbi_kernels(label, args, card, instr_per_s)
            for case, (label, args) in viterbi_args(dev, dvbt_iq,
                                                    j83b_iq).items()}
+    for case, (label, args) in rs_args(dev, dvbt_iq, j83b_iq).items():
+        res[f"rs_{case}"] = {"rs_decode": check_rs_kernel(label, args, card,
+                                                          instr_per_s)}
     bbc = dvbt2_bbc()
     spf = t2.samples_per_frame(bbc)
     body = awgn(dvbt2_iq, RX_DVBT2_SNR_DB, RX_NOISE_SEED)[2048:spf]
@@ -3016,7 +3115,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6b. the decoder kernels (Viterbi ACS and traceback, K=7 and K=5; the
-    # min-sum check and variable kernels) against their plain versions on
+    # min-sum check and variable kernels; RS) against their plain versions on
     # the card at full width, bit for bit, and their times beside their
     # bounds
     t_dec = time.perf_counter()
@@ -3033,12 +3132,12 @@ def main() -> int:
     # CPU stage by stage, the CLIs, receive throughput and profiles: DVB-T
     # and J.83B, a long DVB-T call under a memory cap, then DVB-T2 (hard
     # and soft, BBC and blade)
-    viterbi_kernels = ("viterbi_acs", "viterbi_traceback")
+    rx_kernels = ("viterbi_acs", "viterbi_traceback", "rs_decode")
     t_rx = time.perf_counter()
     rx_launches: dict[str, dict] = {}
-    with _main_path(rx_launches, "dvbt rx", viterbi_kernels):
+    with _main_path(rx_launches, "dvbt rx", rx_kernels):
         dvbt_rx, dvbt_noisy = check_dvbt_rx(dev, dvbt_golden, dvbt_iq)
-    with _main_path(rx_launches, "j83b rx", viterbi_kernels):
+    with _main_path(rx_launches, "j83b rx", rx_kernels):
         j83b_rx, j83b_noisy = check_j83b_rx(dev, golden, iq)
     check_rx_stages(dev, dvbt_noisy, iq, j83b_noisy)
     _rx_cli("dvbt-rx", dvbt_iq, dvbt_rx.ts, "cuda")
@@ -3189,12 +3288,14 @@ def main() -> int:
             ("ldpc_check", "ldpc_minsum.cu", "ldpc_decode.py:112",
              "dvbt2_awgn", ("dvbt2 rx",), ldpc_extra),
             ("ldpc_variable", "ldpc_minsum.cu", "ldpc_decode.py:113",
-             "dvbt2_awgn", ("dvbt2 rx",), ldpc_extra)):
+             "dvbt2_awgn", ("dvbt2 rx",), ldpc_extra),
+            ("rs_decode", "rs_decode.cu", None, "rs_dvbt",
+             ("dvbt rx", "j83b rx"), ("rs_j83b",))):
         m = dec[case][name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"dtv_utils_torch/csrc/{source}",
-            "replaces": f"dtv_utils_tpu/ops/{replaces}",
+            "replaces": replaces and f"dtv_utils_tpu/ops/{replaces}",
             "launches": sum(rx_launches[r][name] for r in runs),
             "launches_by_run": {r: rx_launches[r][name] for r in runs},
             "launches_in_graphs": graphs["launches"].get(name, 0),

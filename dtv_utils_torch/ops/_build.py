@@ -49,6 +49,9 @@ _LAUNCHERS = {
     "ldpc_check": ("ldpc_check_launch", [_vp] * 6 + [_ll] * 5 + [_vp]),
     "ldpc_variable": ("ldpc_variable_launch",
                       [_vp] * 5 + [_ll] * 5 + [_vp, _vp]),
+    "rs_decode": ("rs_decode_launch",
+                  [_vp, _i, _ll, _ll, _i, _i, _i, _i, _vp, _vp, _vp, _i,
+                   _vp, _vp, _vp]),
 }
 
 LAUNCHES = dict.fromkeys(_LAUNCHERS, 0)

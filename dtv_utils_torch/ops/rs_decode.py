@@ -1,6 +1,22 @@
 """Reed-Solomon decoder: syndromes, Berlekamp-Massey, Chien and Forney
 (port of ``dtv_utils_tpu/ops/rs_decode.py``).
 
+``RsDecoder.decode_words`` and ``decode_bytes`` decode a batch of
+codewords.  A CUDA batch goes through one kernel hand-written for Hopper
+(``csrc/rs_decode.cu``), one launch per decode, which runs every step for
+each codeword with no intermediate in device memory; it is generic over
+the code up to ``MAX_M`` and ``MAX_ROOTS``, so both served codes (DVB-T's
+RS(204,188) over GF(256), J.83B's (127,122) over GF(128)) take it with
+their own parameters.  The launch runs inside the span
+``rs_decode_kernel`` (``utils/trace.span``) and is counted in
+``_build.LAUNCHES["rs_decode"]``.  A CPU batch takes the plain version,
+``decode_reference``; there is no other route and no fallback.  The
+JAX package's decoder is XLA ops, so the kernel replaces no TPU kernel:
+it was added because the plain version's 773 launches a DVB-T receive
+call held the host.
+
+The plain version is a few dozen batched PyTorch ops:
+
 * Syndromes are GF(2)-linear in the codeword bits, so a batch computes all
   of them as one float32 0/1 product with a bit-matrix built on the host
   (``core/galois.gf2_matmul``, exact in TF32 too).
@@ -11,10 +27,11 @@
 GF products are looked up in the log domain with a zero sentinel:
 ``mul(a, b) = expz[logz[a] + logz[b]]``, where ``logz[0]`` is large enough
 that any sum with it lands in a zero tail of ``expz``, so no separate test
-for zero operands is needed.  XOR reductions over a small last axis (at
-most 2t+1 terms) fold in halves.  Every value is an exact integer, so the
-outputs equal the reference's, including on packets with more than t
-errors.  No step syncs with the host.
+for zero operands is needed; the kernel looks up the same tables.  XOR
+reductions over a small last axis (at most 2t+1 terms) fold in halves.
+Every value is an exact integer, so the kernel's outputs equal the plain
+version's, and both equal the reference's, including on packets with more
+than t errors.  No step syncs with the host.
 """
 
 from __future__ import annotations
@@ -27,6 +44,13 @@ import torch.nn.functional as F
 
 from dtv_utils_torch.core import bits as bitops
 from dtv_utils_torch.core.galois import GF, GF256, gf2_matmul
+from dtv_utils_torch.ops import _build
+from dtv_utils_torch.utils.trace import span
+
+# csrc/rs_decode.cu's caps: GF(2^m) with m <= MAX_M, at most MAX_ROOTS roots
+MAX_M, MAX_ROOTS = 8, 16
+# the codeword dtypes both routes take; the kernel reads each as it is
+CODEWORD_DTYPES = (torch.uint8, torch.int32, torch.int64)
 
 
 def xor_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -153,11 +177,10 @@ class RsDecoder:
             C = torch.where(nonzero[:, None], Cn, C)
         return C, L
 
-    def decode_words(self, cw: torch.Tensor):
-        """cw int [batch, n] → (corrected int32 [batch, n], n_errors int32
-        [batch], ok bool [batch]) on the device of ``cw``.  ``ok`` is False
-        when the packet had more than t errors (detected: locator degree
-        mismatch or a root in the shortened code's virtual prefix)."""
+    def decode_reference(self, cw: torch.Tensor):
+        """Plain version of the kernel: cw int [batch, n] → (corrected
+        int32 [batch, n], n_errors int32 [batch], ok bool [batch]) on the
+        device of ``cw``, in batched PyTorch ops."""
         tb = self._tables(cw.device)
         expz, logz = tb["expz"], tb["logz"]
         nr = self.nroots
@@ -192,14 +215,61 @@ class RsDecoder:
         n_err = torch.where(clean, 0, n_found)
         return corrected, n_err, ok
 
+    def _check(self, cw: torch.Tensor) -> None:
+        """The arguments both routes take: a code within the kernel's caps
+        and codewords [batch, n] of a ``CODEWORD_DTYPES`` dtype whose
+        symbols are contiguous (rows may be strided)."""
+        if self.gf.m > MAX_M or self.nroots > MAX_ROOTS:
+            raise ValueError(
+                f"the RS kernel takes GF(2^m) with m <= {MAX_M} and at most "
+                f"{MAX_ROOTS} roots, not GF(2^{self.gf.m}) with "
+                f"{self.nroots}")
+        if cw.dtype not in CODEWORD_DTYPES:
+            raise TypeError(f"codewords must be one of {CODEWORD_DTYPES}, "
+                            f"got {cw.dtype}")
+        if cw.dim() != 2 or cw.shape[1] != self.n:
+            raise ValueError(f"need codewords [batch, {self.n}], got "
+                             f"{tuple(cw.shape)}")
+        if cw.stride(1) != 1:
+            raise ValueError("each codeword's symbols must be contiguous")
+
+    def _decode(self, cw: torch.Tensor, out_dtype: torch.dtype):
+        """(corrected ``out_dtype`` [batch, n], n_errors, ok): the kernel
+        on the card, ``decode_reference`` on the CPU."""
+        self._check(cw)
+        if not _build.on_card(cw):
+            corrected, n_err, ok = self.decode_reference(cw)
+            return corrected.to(out_dtype), n_err, ok
+        tb = self._tables(cw.device)
+        batch = cw.shape[0]
+        corrected = torch.empty((batch, self.n), dtype=out_dtype,
+                                device=cw.device)
+        n_err = torch.empty(batch, dtype=torch.int32, device=cw.device)
+        ok = torch.empty(batch, dtype=torch.bool, device=cw.device)
+        with span("rs_decode_kernel"):
+            _build.launch("rs_decode", cw.device, cw.data_ptr(),
+                          cw.element_size(), batch, cw.stride(0),
+                          self.gf.m, self.n, self.nroots, self.first_root,
+                          tb["expz"].data_ptr(), tb["logz"].data_ptr(),
+                          corrected.data_ptr(), corrected.element_size(),
+                          n_err.data_ptr(), ok.data_ptr())
+        return corrected, n_err, ok
+
+    def decode_words(self, cw: torch.Tensor):
+        """cw [batch, n] (a ``CODEWORD_DTYPES`` dtype, symbols contiguous)
+        → (corrected int32 [batch, n], n_errors int32 [batch], ok bool
+        [batch]) on the device of ``cw``.  ``ok`` is False when the packet
+        had more than t errors (detected: locator degree mismatch or a root
+        in the shortened code's virtual prefix)."""
+        return self._decode(cw, torch.int32)
+
     def decode_bytes(self, cw: torch.Tensor):
         """uint8 [batch, n] (GF(256) only) → (corrected uint8, n_errors,
         ok)."""
         if self.gf.m != 8:
             raise ValueError(f"decode_bytes needs GF(2^8), not "
                              f"GF(2^{self.gf.m})")
-        c, n, ok = self.decode_words(cw)
-        return c.to(torch.uint8), n, ok
+        return self._decode(cw, torch.uint8)
 
 
 @functools.cache

@@ -6,8 +6,9 @@ on the card) → carrier extraction → pilot-phase detection → TPS decode
 (differential + BCH syndrome check, on the host) → composed
 de-interleave gather → max-log soft demap (per-bit LLRs) → depuncture →
 block-parallel soft Viterbi (``ops/viterbi.py``) → Forney deinterleave →
-Berlekamp-Massey RS(204,188) (``ops/rs_decode.py``) → energy de-dispersal
-→ TS.
+Berlekamp-Massey RS(204,188) (``ops/rs_decode.py``: on the card one launch
+of ``csrc/rs_decode.cu`` per chunk of packets, on the CPU its plain
+version ``RsDecoder.decode_reference``) → energy de-dispersal → TS.
 
 The IQ must start at a superframe boundary, the modulator's output
 contract.  The pilot phase and TPS are decoded from the signal and

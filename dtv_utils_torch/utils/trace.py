@@ -60,8 +60,10 @@ Inside them:
 
 Inside a captured CUDA graph a span is host-only: a replay is one host
 launch, and nothing the span marked is replayed.  The ranges
-``viterbi_acs``, ``viterbi_traceback`` and ``ldpc_minsum`` of the decoders
-go through ``span`` too, under those names.
+``viterbi_acs``, ``viterbi_traceback`` and ``ldpc_minsum`` of the
+decoders, and ``rs_decode_kernel`` around the RS kernel's launch
+(``ops/rs_decode.py``, on the card only), go through ``span`` too, under
+those names.
 """
 
 from __future__ import annotations

@@ -356,3 +356,189 @@ def test_rs_decoder_rejects():
             torch.zeros(1, 127, dtype=torch.uint8))
     with pytest.raises(ValueError, match="root_step"):
         TR.RsDecoder(tgalois.GF256, 188, 16, root_step=2)
+
+
+# ---------------------------------------------------------------------------
+# The RS kernel (csrc/rs_decode.cu): its wrapper on the CPU, and a NumPy
+# model of its warp schedule
+# ---------------------------------------------------------------------------
+
+def _rs_bad_input(which):
+    """(decoder, codewords, exception, message) that the wrapper refuses."""
+    cw = torch.zeros(4, 204, dtype=torch.uint8)
+    return {
+        "roots": (TR.RsDecoder(tgalois.GF256, 180, 18), torch.zeros(
+            4, 198, dtype=torch.uint8), ValueError, "at most 16 roots"),
+        "dtype": (TR.DVBT_RS_DEC(), cw.float(), TypeError, "must be one of"),
+        "bool": (TR.DVBT_RS_DEC(), cw.bool(), TypeError, "must be one of"),
+        "shape": (TR.DVBT_RS_DEC(), cw[:, :203], ValueError,
+                  r"\[batch, 204\]"),
+        "rank": (TR.DVBT_RS_DEC(), cw[0], ValueError, r"\[batch, 204\]"),
+        "strided": (TR.DVBT_RS_DEC(), torch.zeros(4, 408, dtype=torch.uint8)
+                    [:, ::2], ValueError, "contiguous"),
+        "device": (TR.DVBT_RS_DEC(), cw.to("meta"), ValueError,
+                   "unsupported device"),
+    }[which]
+
+
+@pytest.mark.parametrize("which", ["roots", "dtype", "bool", "shape", "rank",
+                                   "strided", "device"])
+@pytest.mark.parametrize("entry", ["decode_words", "decode_bytes"])
+def test_rs_wrapper_rejects(which, entry):
+    """Both routes take the same arguments: a code within the kernel's
+    caps, codewords [batch, n] of an integer dtype with contiguous
+    symbols, on the CPU or the card."""
+    dec, cw, exc, msg = _rs_bad_input(which)
+    with pytest.raises(exc, match=msg):
+        getattr(dec, entry)(cw)
+
+
+def test_rs_wrapper_rejects_a_field_past_the_caps():
+    gf512 = tgalois.GF(0x211, 9)
+    dec = TR.RsDecoder(gf512, 10, 4)
+    with pytest.raises(ValueError, match=r"m <= 8"):
+        dec.decode_words(torch.zeros(2, 14, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("which", ["dvbt", "j83b"])
+def test_rs_wrappers_take_plain_version_on_cpu(which):
+    """On the CPU decode_words and decode_bytes are decode_reference (as
+    int32, or cast to uint8), launch nothing, and take codewords whose
+    rows are strided (J.83B's [:, :127] view)."""
+    from dtv_utils_torch.ops import _build
+
+    _, bad, _, _ = _rs_case(which, seed=8)
+    dec, _ = _decoders(which)
+    wide = np.zeros((bad.shape[0], dec.n + 1), bad.dtype)
+    wide[:, :dec.n] = bad
+    before = dict(_build.LAUNCHES)
+    got = dec.decode_words(torch.from_numpy(wide)[:, :dec.n])
+    assert _build.LAUNCHES == before
+    want = dec.decode_reference(torch.from_numpy(bad))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    if dec.gf.m == 8:
+        got = dec.decode_bytes(torch.from_numpy(bad.astype(np.uint8)))
+        assert got[0].dtype == torch.uint8
+        np.testing.assert_array_equal(got[0].numpy(),
+                                      want[0].numpy().astype(np.uint8))
+
+
+def _model_rs_kernel(dec, cw):
+    """NumPy model of ``rs_decode_kernel``: one warp per codeword, the
+    warp's 32 lanes as the last axis, every codeword of ``cw`` [R, n] at
+    once; the kernel's loops, shuffles (an index of the lane axis),
+    reduce-scatter and ballots as written, its warp-uniform branches as
+    selections per codeword.  Returns (corrected int32, n_err, ok)."""
+    tb = dec._tables(torch.device("cpu"))
+    expz, logz = tb["expz"].numpy(), tb["logz"].numpy()
+    q1, n, nr = dec.gf.q - 1, dec.n, dec.nroots
+    fr, xf = dec.first_root % q1, (1 - dec.first_root) % q1
+    R = cw.shape[0]
+    lane = np.arange(32)
+    k = lane + 32 * np.arange(8)[:, None]                      # [8, 32]
+    real = k < n
+    e = np.where(real, n - 1 - k, 0)
+    v = np.zeros((R, 8, 32), np.int64)
+    v[:, real] = cw.astype(np.int32)[:, k[real]]
+    # syndromes: each lane's symbols, every root, then the reduce-scatter
+    lv = logz[v & q1]
+    pw = np.broadcast_to(fr * e % q1, v.shape).copy()
+    s = np.zeros((16, R, 32), np.int64)
+    for j in range(nr):
+        s[j] = np.bitwise_xor.reduce(expz[lv + pw], axis=1)
+        pw += e
+        pw -= np.where(pw >= q1, q1, 0)
+    h, o = 8, 16
+    while h >= 1:
+        hi = (lane & o) != 0
+        for i in range(h):
+            send = np.where(hi, s[i], s[i + h])
+            keep = np.where(hi, s[i + h], s[i])
+            s[i] = keep ^ send[:, lane ^ o]
+        h, o = h // 2, o // 2
+    syn = s[0] ^ s[0][:, lane ^ 1]                             # [R, 32]
+    clean = ~(syn != 0).any(1)
+    # Berlekamp-Massey, lane i holding C_i and B_i
+    ls = logz[syn]
+    C = np.broadcast_to(lane == 0, (R, 32)).astype(np.int64)
+    B = C.copy()
+    L = np.zeros(R, np.int64)
+    bden = np.ones(R, np.int64)
+    for r in range(nr):
+        lsr = ls[:, (2 * (r - lane)) & 31]
+        d = np.bitwise_xor.reduce(
+            np.where(lane <= r, expz[logz[C] + lsr], 0), axis=1)
+        inv = expz[q1 - logz[np.where(bden == 0, 1, bden)]]
+        coef = expz[logz[d] + logz[inv]]
+        bx = np.concatenate([B[:, :1], B[:, :-1]], axis=1)    # shfl_up
+        bx[:, (lane == 0) | (lane > nr)] = 0
+        cn = C ^ expz[logz[coef][:, None] + logz[bx]]
+        upgrade = (d != 0) & (2 * L <= r)
+        B = np.where(upgrade[:, None], C, bx)
+        L = np.where(upgrade, r + 1 - L, L)
+        bden = np.where(upgrade, d, bden)
+        C = np.where((d != 0)[:, None], cn, C)
+    lc = logz[C][:, :17]
+    om = np.zeros((R, 32), np.int64)
+    for i in range(16):
+        lsi = ls[:, (2 * (lane - i)) & 31]
+        om ^= np.where((i <= lane) & (lane < nr), expz[lc[:, i:i + 1] + lsi],
+                       0)
+    lo = logz[om][:, :16]
+    # Chien and Forney at each lane's positions
+    found = np.zeros(R, np.int64)
+    for i in range(8):
+        ei = e[i]
+        step = np.where(ei == 0, 0, q1 - ei)
+        lam = np.zeros((R, 32), np.int64)
+        omv, dl = lam.copy(), lam.copy()
+        pw = np.zeros(32, np.int64)
+        for j in range(17):
+            lam ^= expz[lc[:, j:j + 1] + pw]
+            if j < 16:
+                omv ^= expz[lo[:, j:j + 1] + pw]
+            if j % 2 == 0 and j < 16:
+                dl ^= expz[lc[:, j + 1:j + 2] + pw]
+            pw = pw + step
+            pw -= np.where(pw >= q1, q1, 0)
+        root = real[i] & (lam == 0)
+        found += root.sum(1)
+        inv = expz[q1 - logz[np.where(dl == 0, 1, dl)]]
+        x = expz[logz[omv] + logz[inv]]
+        v[:, i] = np.where(root, v[:, i] ^ expz[logz[x] + ei * xf % q1],
+                           v[:, i])
+    t = nr // 2
+    corrected = v.reshape(R, 256)[:, :n].astype(np.int32)
+    n_err = np.where(clean, 0, found).astype(np.int32)
+    ok = clean | ((found == L) & (L <= t))
+    return corrected, n_err, ok
+
+
+def _rs_words(which, case, seed):
+    """Codewords of the code for a model or card case: valid words with
+    e errors each, e from ``case``, or uniformly random words."""
+    cw, _, _, t = _rs_case(which, seed)
+    dec, _ = _decoders(which)
+    rng = np.random.default_rng(seed + 100)
+    if case == "random":
+        return rng.integers(0, dec.gf.q, cw.shape).astype(cw.dtype)
+    n_errs = {"clean": 0, "t": t, "t+1": t + 1, "2t": 2 * t}[case]
+    return _corrupt(cw, [n_errs] * len(cw), dec.gf.q, rng)
+
+
+@pytest.mark.parametrize("case", ["mixed", "clean", "t", "t+1", "2t",
+                                  "random"])
+@pytest.mark.parametrize("which", ["dvbt", "j83b"])
+def test_rs_kernel_model_equals_plain(which, case):
+    """The kernel's schedule, modelled lane for lane, gives the plain
+    version's corrected words, n_err and ok: 0..2t+3 errors, each count
+    alone, and random words (more than t errors, locators of any degree)."""
+    dec, _ = _decoders(which)
+    bad = (_rs_case(which, seed=9)[1] if case == "mixed"
+           else _rs_words(which, case, seed=9))
+    got = _model_rs_kernel(dec, bad)
+    want = [a.numpy() for a in dec.decode_reference(torch.from_numpy(bad))]
+    for g, w, name in zip(got, want, ("corrected", "n_err", "ok")):
+        np.testing.assert_array_equal(g, w, err_msg=name)

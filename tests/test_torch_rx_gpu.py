@@ -9,9 +9,9 @@ tests/test_torch_rx_gpu.py -m gpu``.  The JAX comparisons are in
 The Viterbi, RS and min-sum LDPC decoders do exact or fixed-order
 arithmetic, so their outputs must be equal; the receivers' FFT and matched
 filter round differently on the card, so there the TS and every flag must
-be equal, and the input TS recovered.  The Viterbi and min-sum kernels
-(``csrc/viterbi.cu``, ``csrc/ldpc_minsum.cu``) are also held to their plain
-versions run on the card on the same tensors, bit for bit.
+be equal, and the input TS recovered.  The Viterbi, min-sum and RS kernels
+(``csrc/viterbi.cu``, ``csrc/ldpc_minsum.cu``, ``csrc/rs_decode.cu``) are
+also held to their plain versions on the same tensors, bit for bit.
 """
 
 import re
@@ -27,6 +27,7 @@ from dtv_utils_torch.core.config import (CodeRate, Constellation, DvbtConfig,
 from dtv_utils_torch.core.galois import GF128
 from dtv_utils_torch.ops import _build, convcode
 from dtv_utils_torch.ops import ldpc_decode as LD
+from dtv_utils_torch.ops import rs as TRS
 from dtv_utils_torch.ops import rs_decode as TR
 from dtv_utils_torch.ops import viterbi as TV
 from dtv_utils_torch.rx import dvbt as RXD
@@ -247,16 +248,92 @@ def test_ldpc_kernels_equal_plain(case):
     assert torch.equal(hard.cpu(), want[0]) and torch.equal(ok.cpu(), want[1])
 
 
+def _rs_dec(which):
+    return (TR.DVBT_RS_DEC() if which == "dvbt"
+            else TR.RsDecoder(GF128, 122, 5, first_root=1))
+
+
+def _rs_words(dec, case, batch, seed=3):
+    """int64 codewords [batch, n] of ``dec``'s code: valid words with the
+    errors ``case`` names (none, t, t+1 or 2t each; "mixed": 1..2t+4 in
+    turn), or uniformly random words."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        return rng.integers(0, dec.gf.q, (batch, dec.n))
+    enc = (TRS.DVBT_RS() if dec.gf.m == 8
+           else TRS.RsBitEncoder(GF128, 122, 5, first_root=1))
+    msgs = rng.integers(0, dec.gf.q, (batch, dec.k_sym))
+    cw = np.concatenate([msgs, enc.gf.rs_encode_ref(msgs, enc.genpoly)],
+                        axis=1)
+    n_errs = ((np.arange(batch) + 1) % (2 * dec.t + 5) if case == "mixed"
+              else [{"clean": 0, "t": dec.t, "t+1": dec.t + 1,
+                     "2t": 2 * dec.t}[case]] * batch)
+    for p, ne in enumerate(n_errs):
+        pos = rng.choice(dec.n, ne, replace=False)
+        cw[p, pos] ^= rng.integers(1, dec.gf.q, ne)
+    return cw
+
+
+def _one_rs_launch(decode, *args):
+    """``decode(*args)``, asserting that it launched the RS kernel once
+    and no other kernel."""
+    before = dict(_build.LAUNCHES)
+    out = decode(*args)
+    assert _build.LAUNCHES == before | {"rs_decode":
+                                        before["rs_decode"] + 1}
+    return out
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case, batch", [
+    ("clean", 203), ("t", 203), ("t+1", 203), ("2t", 203), ("random", 203),
+    ("mixed", 1), ("mixed", 7), ("mixed", 1001)])
 @pytest.mark.parametrize("which", ["dvbt", "j83b"])
-def test_rs_cuda_equals_cpu(which):
+def test_rs_cuda_equals_cpu(which, case, batch):
+    """The kernel's corrected words, n_err and ok equal the plain
+    version's on the CPU bit for bit: clean words, exactly t, t+1 and 2t
+    errors, random words, and batches of 1, 7 and others not a multiple of
+    the kernel's 8 warps per CTA."""
     _need_cuda()
-    dec = (TR.DVBT_RS_DEC() if which == "dvbt"
-           else TR.RsDecoder(GF128, 122, 5, first_root=1))
-    rng = np.random.default_rng(3)
-    cw = torch.from_numpy(rng.integers(0, dec.gf.q, (256, dec.n)))
-    for g, w in zip(dec.decode_words(cw.cuda()), dec.decode_words(cw)):
-        assert torch.equal(g.cpu(), w)
+    dec = _rs_dec(which)
+    cw = torch.from_numpy(_rs_words(dec, case, batch))
+    got = _one_rs_launch(dec.decode_words, cw.cuda())
+    want = dec.decode_words(cw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if case in ("clean", "t"):
+        assert want[2].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 7, 1001])
+def test_rs_cuda_bytes_equal_cpu(batch):
+    """uint8 codewords through decode_bytes: the kernel reads and writes
+    bytes, equal to the plain version's."""
+    _need_cuda()
+    dec = TR.DVBT_RS_DEC()
+    cw = torch.from_numpy(_rs_words(dec, "mixed", batch, seed=5)).to(
+        torch.uint8)
+    got = _one_rs_launch(dec.decode_bytes, cw.cuda())
+    want = dec.decode_bytes(cw)
+    assert got[0].dtype == torch.uint8
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_rs_cuda_takes_strided_rows():
+    """J.83B's layout: int32 words read in place from the [:, :127] view
+    of [n_cw, 128] rows, equal to the plain version run on the card."""
+    _need_cuda()
+    dec = _rs_dec("j83b")
+    wide = torch.from_numpy(_rs_words(dec, "mixed", 999, seed=6)).to(
+        torch.int32)
+    wide = torch.cat([wide, wide[:, :1]], 1).cuda()
+    got = _one_rs_launch(dec.decode_words, wide[:, :127])
+    want = dec.decode_reference(wide[:, :127])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
