@@ -9,7 +9,10 @@ drawn from the seed are checked: their TS byte for byte against what was
 sent (a call must return at least ``min_packets`` packets), and the
 output of the stage whose precision the configuration states (the
 standard's ``demap_tap``) against the reference's demap of the same
-capture.  Every call's health flags are read after the window.
+capture.  Every call's health flags are read after the window.  The
+standard's module gives what is particular to its receiver: the work of
+a call (``rx_work``) and the readings logged beside the check
+(``rx_info``).
 """
 
 from __future__ import annotations
@@ -93,11 +96,9 @@ def run(ctx) -> window.Outcome:
         attempted=rec.calls,
         failed=sum(f > 0 for f in flags) + sum(b > 0 for b in bad_bytes)
         + sum(e > lim[name] for e in demap) + short,
-        memory_peak_bytes=peak,
-        info={"rs_corrected_per_call":
-              sum(int(r.rs_errors.sum()) for r in results) / len(results)},
+        memory_peak_bytes=peak, info=std.rx_info(results),
         work={"blocks_per_call": t["blocks_per_call"],
-              "viterbi": std.viterbi_work(t["blocks_per_call"])})
+              **std.rx_work(t["blocks_per_call"])})
 
 
 def _control(ctx):

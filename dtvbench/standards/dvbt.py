@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import contextlib
 
-import numpy as np
 import torch
 
 from dtvbench.reference import dvbt as ref
@@ -46,23 +45,6 @@ def batched(cfg: dict, device):
     modulator (one captured graph per L)."""
     from dtv_utils_torch.parallel.stream import batched_dvbt_modulator
     return batched_dvbt_modulator(port_config(cfg), device=device)
-
-
-class Stream:
-    """One channel of the program's served path: host TS of whole
-    superframes in, host IQ out, the state carried between calls."""
-
-    def __init__(self, cfg: dict, device):
-        from dtv_utils_torch.tx import dvbt as txd
-        self._mod = txd.modulate_stream
-        self._cfg = port_config(cfg)
-        self._dev = device
-        self.state = None
-
-    def __call__(self, ts: np.ndarray) -> np.ndarray:
-        iq, self.state = self._mod(self._cfg, ts, self.state,
-                                   device=self._dev)
-        return iq
 
 
 def reference(ts: torch.Tensor, prev_tail: torch.Tensor | None, block: int,
@@ -108,6 +90,20 @@ def viterbi_work(blocks: int) -> tuple[int, int, int]:
     steps at rate 7/8."""
     steps = blocks * ref.PACKETS * ref.CODED * 8
     return steps, 7, steps * 8 // 7
+
+
+def rx_work(blocks: int) -> dict:
+    """The work of a receive call of ``blocks`` superframes, beside its
+    blocks: the Viterbi's trellis (``viterbi_roofline.rx`` reads it)."""
+    return {"viterbi": viterbi_work(blocks)}
+
+
+def rx_info(results) -> dict:
+    """Readings logged beside the check: the RS decoder's corrected
+    symbols, a mean over the window's calls.  Every receiver whose result
+    has ``rs_errors`` (J.83B's too) takes this one."""
+    return {"rs_corrected_per_call":
+            sum(int(r.rs_errors.sum()) for r in results) / len(results)}
 
 
 # The stage whose precision the configuration states, "receiver LLRs

@@ -12,6 +12,8 @@ import contextlib
 import torch
 
 from dtvbench.reference import j83b as ref
+# The receive result's RS readings are DVB-T's: one function reads both.
+from dtvbench.standards.dvbt import rx_info  # noqa: F401
 
 BLOCK_BYTES = ref.BLOCK_BYTES          # TS bytes per superblock
 BLOCK_SAMPLES = ref.BLOCK_SAMPLES      # IQ samples per superblock
@@ -58,6 +60,12 @@ def viterbi_work(blocks: int) -> tuple[int, int, int]:
     groups = blocks * ref.FR["frames_per_superblock"] * ref.FRAME_BITS \
         // ref.TR["group_bits"]
     return groups * 8, ref.TR["K"], groups * 10
+
+
+def rx_work(blocks: int) -> dict:
+    """The work of a receive call of ``blocks`` superblocks, beside its
+    blocks: the Viterbi's trellis (``viterbi_roofline.rx`` reads it)."""
+    return {"viterbi": viterbi_work(blocks)}
 
 
 # The stage whose precision the configuration states, "matched filter

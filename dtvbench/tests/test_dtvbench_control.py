@@ -18,28 +18,23 @@ from __future__ import annotations
 import pytest
 
 from dtvbench import run
-from dtvbench.tests.test_dtvbench_harness import TINY
+from dtvbench.tests import cells
 
-FAULTS = {"dvbt-tx-batched": ["control", "state", "half", "altered"],
-          "dvbt-tx-stream": ["control", "state", "half", "altered"],
-          "dvbt-rx-20db": ["control-bfloat16", "control-hard", "half",
-                           "altered"],
-          "j83b-rx-27db": ["control-bfloat16", "half", "altered"]}
-CASES = [(c, p) for c, ps in FAULTS.items() for p in ps]
+CASES = cells.fault_cases()
 SEED = 2**31 + 4242
 
 
-@pytest.mark.parametrize("name", sorted(FAULTS))
+@pytest.mark.parametrize("name", sorted(cells.names()))
 def test_program_passes_at_a_small_size(name):
     line = run.execute(name, SEED, 0.2, False, device="cpu",
-                       overrides=TINY[name])
+                       overrides=cells.rehearsal(name))
     assert line["correct"] is True, line["checks"]
 
 
 @pytest.mark.parametrize("name,plant", CASES)
 def test_fault_fails_at_a_small_size(name, plant):
     line = run.execute(name, SEED, 0.2, False, device="cpu", plant=plant,
-                       overrides=TINY[name])
+                       overrides=cells.rehearsal(name))
     assert line["correct"] is False, line["checks"]
 
 

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import pytest
 
-from dtvbench.tests.test_dtvbench_harness import TINY
+from dtvbench.tests import cells
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -25,11 +25,11 @@ def _fresh(code: str) -> str:
     return r.stdout.splitlines()[-1]
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
+@pytest.mark.parametrize("name", sorted(cells.names()))
 def test_rehearsal_loads_no_jax(name):
     code = ("import json, sys; from dtvbench import run; "
             f"line = run.execute({name!r}, 2**31 + 3, 0.2, True, "
-            f"device='cpu', overrides={TINY[name]!r}); "
+            f"device='cpu', overrides={cells.rehearsal(name)!r}); "
             "print(json.dumps([line['correct'], run.forbidden_modules(), "
             "sorted({m.split('.')[0] for m in sys.modules})]))")
     correct, found, top = json.loads(_fresh(code))

@@ -1,7 +1,9 @@
-"""The harness on the CPU: every cell resolves its files by name, a cell
-added as data runs with no edit to an existing file, the command fails
-without a card rather than falling back, the result line has the
-contract's keys, and a checkout without the program gives no result.
+"""The harness on the CPU: every cell resolves its files by name and
+holds its own test data, a cell added as data (of a standard the
+benchmark has never had, too) runs with no edit to an existing file, the
+command fails without a card rather than falling back, the result line
+has the contract's keys, and a checkout without the program gives no
+result.
 """
 
 from __future__ import annotations
@@ -17,32 +19,25 @@ from pathlib import Path
 import pytest
 
 from dtvbench import run
+from dtvbench.tests import cells
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-TWO_TRACED = {"calls": 2}
-TINY = {"dvbt-tx-batched": {"traffic": {"blocks_per_call": 2,
-                                        "pool_blocks": 4,
-                                        "warmup_calls": 1},
-                            "trace": TWO_TRACED},
-        "dvbt-tx-stream": {"traffic": {"channels": 2,
-                                       "pool_blocks_per_channel": 2,
-                                       "warmup_calls_per_channel": 1},
-                           "trace": TWO_TRACED},
-        "dvbt-rx-20db": {"traffic": {"blocks_per_call": 1,
-                                     "noise_draws": 1, "warmup_calls": 1},
-                         "check": {"min_packets": 5281},
-                         "trace": TWO_TRACED},
-        "j83b-rx-27db": {"traffic": {"blocks_per_call": 1,
-                                     "noise_draws": 1, "warmup_calls": 1},
-                         "check": {"min_packets": 6115},
-                         "trace": TWO_TRACED}}
-CELLS = [w["name"] for w in BENCH["workloads"]]
+CELLS = cells.names()
 
 
-def test_every_cell_has_a_tiny_rehearsal():
-    assert sorted(TINY) == sorted(CELLS)
+@pytest.mark.parametrize("name", CELLS)
+def test_every_cell_has_a_tiny_rehearsal(name):
+    """The cell's workload file holds its CPU rehearsal, whose sections
+    and keys are the file's own, and its plants: at least one control."""
+    w = cells.workload(name)
+    assert w["rehearsal"]
+    for section, values in w["rehearsal"].items():
+        assert isinstance(w.get(section), dict), section
+        assert set(values) <= set(w[section]), section
+    assert w["faults"]
+    assert any(p.startswith("control") for p in w["faults"])
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -68,9 +63,13 @@ def test_benchmark_json_keeps_its_contract():
     for x in every:
         assert NAME.match(x["name"]), x["name"]
     for c in BENCH["configs"]:
-        assert (ROOT / c["file"]).is_file() and c["reduced"] == []
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        for key in c["reduced"]:
+            assert key in cfg and key in cfg["published"], key
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
@@ -88,7 +87,8 @@ def test_benchmark_json_keeps_its_contract():
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line_has_the_contract_keys(trace):
     line = run.execute("dvbt-tx-batched", 2**31 + 99, 0.2, trace,
-                       device="cpu", overrides=TINY["dvbt-tx-batched"])
+                       device="cpu",
+                       overrides=cells.rehearsal("dvbt-tx-batched"))
     want = ["correct", "attempted", "failed", "metrics", "device"]
     if trace:
         want.append("breakdown")
@@ -158,6 +158,70 @@ def test_a_cell_added_as_data_runs(tmp_path):
     line = json.loads(r.stdout.splitlines()[-1])
     assert line["correct"] is True and set(line["metrics"]) == {
         "tx_msps", "setup_s"}
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
+
+
+def _pytest(dst: Path, *args: str):
+    """pytest in the copy, on its own dtvbench/ and BENCHMARK.json, with
+    the program from this checkout."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT),
+           "PYTEST_DISABLE_PLUGIN_AUTOLOAD": "1"}
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "-p", "no:cacheprovider", *args],
+        cwd=dst, env=env, capture_output=True, text=True, timeout=900)
+
+
+def test_a_cell_of_a_new_standard_is_added_as_files(tmp_path):
+    """A cell of a standard the benchmark has never had is new files (the
+    standard's module, a configuration that names it, a workload file
+    with its ``rehearsal`` and ``faults``) and entries appended to the
+    lists of BENCHMARK.json: every per-cell test collects it, its
+    rehearsal runs correct and a fault does not, and no file of
+    dtvbench/ changes."""
+    dst = _copy(tmp_path)
+    d = dst / "dtvbench"
+    before = {p: p.read_bytes() for p in d.rglob("*") if p.is_file()}
+    new, like = "dvbtx-tx-batched", "dvbt-tx-batched"
+    shutil.copy(d / "standards/dvbt.py", d / "standards/dvbtx.py")
+    bench = json.loads((dst / "BENCHMARK.json").read_text())
+    conf = dict(bench["configs"][0], name="dvbtx-8k",
+                file="dtvbench/configs/dvbtx-8k.json")
+    cfg = json.loads((dst / bench["configs"][0]["file"]).read_text())
+    cfg.update(name=conf["name"], standard="dvbtx")
+    (dst / conf["file"]).write_text(json.dumps(cfg))
+    w = json.loads((d / f"workloads/{like}.json").read_text())
+    w["config"] = conf["name"]
+    (d / f"workloads/{new}.json").write_text(json.dumps(w))
+    bench["configs"].append(conf)
+    bench["workloads"].append({"name": new, "config": conf["name"],
+                               "traffic": "batched-8sf", "chips": 1,
+                               "why": w["why"]})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(new)
+    (dst / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    r = _pytest(dst, "--collect-only", "-q", "dtvbench/tests")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    ids = [x for x in r.stdout.splitlines() if "::" in x]
+
+    def per_cell(cell):
+        param = re.compile(r"\[" + re.escape(cell) + r"[\]-]")
+        return sorted(i.split("[")[0] for i in ids if param.search(i))
+
+    tests = sorted({t for c in CELLS for t in per_cell(c)})
+    assert "dtvbench/tests/test_dtvbench_control.py::" \
+        "test_fault_fails_on_the_card" in tests
+    assert per_cell(new) == per_cell(like)
+    assert sorted(set(per_cell(new))) == tests
+
+    control = "dtvbench/tests/test_dtvbench_control.py::"
+    r = _pytest(dst, "-q",
+                f"{control}test_program_passes_at_a_small_size[{new}]",
+                f"{control}test_fault_fails_at_a_small_size[{new}-altered]")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "2 passed" in r.stdout
     for p, data in before.items():
         assert p.read_bytes() == data, p
 

@@ -11,7 +11,7 @@ import pytest
 
 from dtvbench import run
 from dtvbench.layer_metrics import _spans
-from dtvbench.tests.test_dtvbench_harness import TINY
+from dtvbench.tests import cells
 from dtvbench.trace import Summary
 
 READERS = ("sizing_ms_per_call.rx", "front_end_host_ms.rx",
@@ -120,12 +120,12 @@ def test_reader_gives_none_without_the_spans(name):
     assert _reader(name).value(_run(None)) is None
 
 
-@pytest.mark.parametrize("cell", sorted(TINY))
+@pytest.mark.parametrize("cell", sorted(cells.names()))
 def test_traced_rehearsal_reports_the_span_metrics(cell):
     """A traced run of each cell at its tiny size on the CPU reads every
     span metric that BENCHMARK.json lists for the cell."""
     line = run.execute(cell, 2**31 + 16, 0.2, True, device="cpu",
-                       overrides=TINY[cell])
+                       overrides=cells.rehearsal(cell))
     want = {m["name"] for m in run.Cell.find(cell).per_layer
             if m["name"] in READERS}
     assert want

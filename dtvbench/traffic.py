@@ -22,13 +22,15 @@ def sub_seed(seed: int, purpose: str) -> int:
 
 def ts_blocks(n: int, block_bytes: int, seed: int, purpose: str,
               device) -> torch.Tensor:
-    """uint8 [n, block_bytes]: seeded payload with a sync byte 0x47 at
-    the start of every 188-byte packet."""
+    """uint8 [n, block_bytes]: seeded payload, the rows one stream, with
+    a sync byte 0x47 at every 188th byte of it, counted from the first
+    row's start.  A block need not hold whole packets (a DVB-T2 frame's
+    TS does not); where it does, every row starts with a sync byte."""
     g = torch.Generator(device=device)
     g.manual_seed(sub_seed(seed, purpose))
     ts = torch.randint(0, 256, (n, block_bytes), generator=g,
                        dtype=torch.uint8, device=device)
-    ts[:, ::188] = 0x47
+    ts.view(-1)[::188] = 0x47
     return ts
 
 
