@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dtv_utils_torch.utils import staging
 from dtv_utils_torch.utils.trace import span
 
 
@@ -33,11 +34,21 @@ def rails_from_np(c: np.ndarray, *, device: torch.device | str) -> torch.Tensor:
 def iq_to_device(iq: np.ndarray | torch.Tensor, *,
                  device: torch.device | str) -> torch.Tensor:
     """complex64 IQ, a NumPy array or a tensor, → flat complex64 tensor on
-    ``device`` (the receivers' input; no other dtype is accepted)."""
+    ``device`` (the receivers' input; no other dtype is accepted).
+
+    Host IQ bound for a CUDA device goes through that device's pinned ring
+    (``utils/staging.py``), read in place even where it is strided; when
+    this returns every byte of it has been read.  An array of more than one
+    dimension is flattened as ``reshape(-1)`` does."""
+    device = torch.device(device)
     if isinstance(iq, np.ndarray):
         if iq.dtype != np.complex64:
             raise TypeError(f"need complex64 IQ, got {iq.dtype}")
+        if device.type == "cuda":
+            return staging.to_device(iq.reshape(-1), device)
         iq = torch.from_numpy(np.ascontiguousarray(iq))
     if iq.dtype != torch.complex64:
         raise TypeError(f"need complex64 IQ, got {iq.dtype}")
+    if device.type == "cuda" and iq.device.type == "cpu":
+        return staging.to_device(iq.numpy(force=True).reshape(-1), device)
     return iq.to(device).reshape(-1)

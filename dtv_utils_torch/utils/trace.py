@@ -31,6 +31,13 @@ Inside them:
 ``dtv.stream.copy_in``
     host → card copies of a call's input (``core/cplx.iq_to_device``;
     each TS block of a ``modulate_stream`` loop).
+``dtv.stream.fill``
+    one chunk of host IQ copied into a pinned slot
+    (``utils/staging.py``), on a thread of the staging pool, so never
+    inside another span of the call's thread.  ``span`` records only on
+    a thread where the profiler is enabled, and a ``torch.profiler``
+    session enables the thread that starts it, so a session over the
+    served calls holds none of these.
 ``dtv.sizing``
     ``utils/device.working_bytes``, the query that sizes a stage's passes.
 ``dtv.rx.front_end``

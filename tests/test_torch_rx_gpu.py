@@ -11,9 +11,12 @@ arithmetic, so their outputs must be equal; the receivers' FFT and matched
 filter round differently on the card, so there the TS and every flag must
 be equal, and the input TS recovered.  The Viterbi, min-sum and RS kernels
 (``csrc/viterbi.cu``, ``csrc/ldpc_minsum.cu``, ``csrc/rs_decode.cu``) are
-also held to their plain versions on the same tensors, bit for bit.
+also held to their plain versions on the same tensors, bit for bit.  Host
+IQ staged through the pinned ring (``utils/staging.py``) must land equal to
+``torch.from_numpy(x).cuda()``, bit for bit, one pinned copy per chunk.
 """
 
+import json
 import re
 from pathlib import Path
 
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from dtv_utils_torch.core import cplx
 from dtv_utils_torch.core.config import (CodeRate, Constellation, DvbtConfig,
                                          Dvbt2Config, GuardInterval,
                                          J83bConfig, TransmissionMode)
@@ -36,6 +40,7 @@ from dtv_utils_torch.rx import j83b as RXQ
 from dtv_utils_torch.tx import dvbt as TXD
 from dtv_utils_torch.tx import dvbt2 as TX2
 from dtv_utils_torch.tx import j83b as TXQ
+from dtv_utils_torch.utils import staging
 
 
 def _need_cuda():
@@ -462,3 +467,81 @@ def test_dvbt2_decode_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+STAGE_CHUNK = staging.CHUNK_BYTES // 8
+STAGE_SIZES = [0, 1, STAGE_CHUNK - 1, STAGE_CHUNK, STAGE_CHUNK + 1,
+               3 * STAGE_CHUNK + 7]
+
+
+def _host_iq(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(2 * n, dtype=np.float32).view(np.complex64)
+
+
+def _bits(x):
+    return torch.view_as_real(x.reshape(-1)).view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", STAGE_SIZES)
+def test_staged_copy_equals_a_plain_one(n):
+    _need_cuda()
+    x = _host_iq(3 * n + 3, seed=n)
+    for src in (x[:n], x[1::3][:n], x[::-1][:n], torch.from_numpy(x)[2:n + 2],
+                torch.from_numpy(x)[::3][:n]):
+        got = cplx.iq_to_device(src, device="cuda")
+        want = (src if isinstance(src, torch.Tensor)
+                else torch.from_numpy(np.array(src))).cuda()
+        assert got.is_cuda and got.shape == (n,)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_staged_source_may_be_overwritten_at_once():
+    _need_cuda()
+    x = _host_iq(staging.SLOTS * STAGE_CHUNK + 7, seed=1)
+    keep = x.copy()
+    got = cplx.iq_to_device(x, device="cuda")
+    x[:] = 0
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(torch.from_numpy(keep).cuda()))
+
+
+@pytest.mark.gpu
+def test_back_to_back_staged_calls_share_the_ring():
+    _need_cuda()
+    # each capture takes more chunks than the ring has slots
+    xs = [_host_iq(staging.SLOTS * STAGE_CHUNK + 11 * k, seed=k)
+          for k in (1, 2, 3)]
+    got = [cplx.iq_to_device(x, device="cuda") for x in xs]
+    torch.cuda.synchronize()
+    for g, x in zip(got, xs):
+        assert torch.equal(_bits(g), _bits(torch.from_numpy(x).cuda()))
+
+
+@pytest.mark.gpu
+def test_traced_copy_in_is_one_pinned_copy_per_chunk(tmp_path):
+    _need_cuda()
+    x = _host_iq(3 * STAGE_CHUNK + 7, seed=5)
+    cplx.iq_to_device(x, device="cuda")                     # ring made
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cplx.iq_to_device(x, device="cuda")
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    span, = [e for e in events if e.get("name") == "dtv.stream.copy_in"
+             and e.get("ph") == "X"]
+    corr = {e["args"].get("correlation") for e in events
+            if e.get("cat") == "cuda_runtime" and e.get("tid") == span["tid"]
+            and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]}
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"]
+    inside = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+              and e["args"].get("correlation") in corr]
+    assert inside == ["Memcpy HtoD (Pinned -> Device)"] * len(
+        staging.chunk_plan(x.shape[0], STAGE_CHUNK))
+    assert not any("Pageable" in c for c in copies)
